@@ -3,8 +3,8 @@
 # `make check` is the one red/green command.
 
 PY ?= python
-# measured 92.05% full-suite; the residual is accounted line-by-line in
-# docs/COVERAGE_NOTES.md (hardware-only branches run under tpu_smoke.py)
+# line-coverage floor; the residual is accounted in docs/COVERAGE_NOTES.md
+# (GPU-only branches run under chip_smoke.py on a card)
 COV_MIN ?= 92
 
 .PHONY: check lint test test-fast cov smoke native clean
@@ -15,7 +15,8 @@ check: lint cov smoke
 lint:
 	$(PY) tools/lint.py
 
-# full suite on the virtual 8-device CPU mesh (tests/conftest.py forces it)
+# full suite on the virtual 8-device CPU mesh (tests/conftest.py defaults
+# JAX to it); `JAX_PLATFORMS=cuda python -m pytest tests -m gpu` on a card
 test:
 	$(PY) -m pytest tests/ -q -n auto
 
@@ -23,8 +24,8 @@ test:
 test-fast:
 	$(PY) -m pytest tests/ -q -n auto -m "not slow"
 
-# the 50 slow mesh suites alone (8-device shard_map compiles; ~10-15 min):
-# the sharded-parity tier VERDICT r4 item 9 asks to keep runnable on its own
+# the slow mesh suites alone (8-device shard_map compiles; ~10-15 min),
+# runnable on their own
 test-mesh:
 	$(PY) -m pytest tests/ -q -m slow
 

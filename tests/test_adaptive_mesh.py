@@ -1,7 +1,7 @@
 """Mesh-sharded adaptive pipelines (funnel/quantized/MaxSim/hybrid) on the
 virtual 8-device CPU mesh: every mode must EQUAL its single-chip counterpart
-per query (VERDICT round-2 item 5; SURVEY §5.8 — the scan cache's vector /
-sign / token blocks are row-sharded, candidates ride ICI between stages)."""
+per query (SURVEY §5.8 — the scan cache's vector /
+sign / token blocks are row-sharded, candidates cross the interconnect between stages)."""
 
 import jax
 import numpy as np

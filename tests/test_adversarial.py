@@ -228,7 +228,7 @@ class TestScriptedSnapshotCorruption:
 
 class TestProcessDeath:
     """The reference's supervision story means a collection must survive its
-    creator dying (vector_hardening_test.exs:130-145). The TPU build has no
+    creator dying (vector_hardening_test.exs:130-145). This library has no
     process model — the analog is the snapshot/restore invariant: a snapshot
     taken before a hard process death restores completely, and a death
     MID-snapshot never corrupts an existing snapshot (tmp+rename atomicity,

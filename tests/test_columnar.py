@@ -2,7 +2,7 @@
 (same contract as test_store.py's CRUD suite) plus columnar-specific
 properties — lock-free read snapshots across compaction, bf16 halves mode,
 odd-record overflow, and the host-RAM shape that motivates it
-(VERDICT r3 item 10; /root/reference/lib/vettore/store/ets.ex:273-282)."""
+(/root/reference/lib/vettore/store/ets.ex:273-282)."""
 
 import threading
 

@@ -91,19 +91,19 @@ class TestGroupedHammingVariants:
             assert np.array_equal(np.asarray(ranks)[i], ham[i][order])
 
     def test_fused_sign_scan_oracle(self):
-        from vettore_tpu.ops import flat_scan
-
+        """The quantized stage-1 scan (int8 product, int32 accumulate,
+        narrowed i16 hamming block + group minima) against numpy."""
         rng = np.random.default_rng(6)
         n, d, b = 1024, 128, 2
         signs_np = (rng.integers(0, 2, (n, d)) * 2 - 1).astype(np.int8)
-        valid = np.ones(n, np.int8)
-        valid[-3:] = 0
+        valid = np.ones(n, bool)
+        valid[-3:] = False
         qs_np = (rng.integers(0, 2, (b, d)) * 2 - 1).astype(np.int8)
-        gmin, ham16 = flat_scan.fused_sign_scan(
-            jnp.asarray(signs_np), jnp.asarray(valid), jnp.asarray(qs_np),
-            d=d, row_tile=512)
+        gmin, ham16 = pipe._sign_group_scan(
+            jnp.asarray(signs_np), jnp.asarray(valid), jnp.asarray(qs_np), d=d)
         ham = (d - qs_np.astype(np.int32) @ signs_np.astype(np.int32).T) // 2
-        ham = np.where(valid[None, :] != 0, ham, flat_scan._BIG16)
+        ham = np.where(valid[None, :], ham, pipe._BIG16)
+        assert ham16.dtype == jnp.int16
         assert np.array_equal(np.asarray(ham16), ham.astype(np.int16))
         assert np.array_equal(
             np.asarray(gmin), ham.reshape(b, n // 64, 64).min(axis=2))

@@ -1,5 +1,5 @@
-"""Fused funnel stage-1 candidates (Pallas prefix scan) vs the XLA path and
-a numpy oracle — interpret-mode on CPU, threshold lowered to engage."""
+"""Funnel stage-1 candidates (prefix-metric rank + exact group-cover
+selection) vs a numpy oracle, and the device funnel vs the host funnel."""
 
 import numpy as np
 import pytest
@@ -7,13 +7,7 @@ import pytest
 import jax.numpy as jnp
 
 from vettore_tpu.collection import Collection
-from vettore_tpu.ops import flat_scan, pipeline as pipe
-
-
-@pytest.fixture
-def lowered(monkeypatch):
-    monkeypatch.setattr(pipe, "_FUSED_STAGE_MIN", 2048)
-    return None
+from vettore_tpu.ops import pipeline as pipe
 
 
 def _corpus(n, d, seed=0):
@@ -28,12 +22,11 @@ def test_fused_stage_candidates_oracle(metric):
     n, d, dims, b, count = 2048, 256, 128, 3, 24
     x = _corpus(n, d)
     q = _corpus(b, d, seed=1)
-    bias = np.zeros(n, np.float32)
-    bias[-7:] = np.inf  # invalid tail
-    xsq = (x[:, :dims] ** 2).sum(axis=1).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[-7:] = False  # invalid tail
 
-    slots, ranks, ok = flat_scan.fused_stage_candidates(
-        jnp.asarray(x), jnp.asarray(xsq), jnp.asarray(bias), jnp.asarray(q),
+    slots, ok = pipe._stage1_candidates(
+        jnp.asarray(x), jnp.asarray(valid), jnp.asarray(q),
         metric=metric, count=count, dims=dims)
     assert bool(np.asarray(ok).all())
 
@@ -50,48 +43,32 @@ def test_fused_stage_candidates_oracle(metric):
         rank = np.sqrt(np.maximum(
             (xp ** 2).sum(1)[None, :] - 2 * (qp @ xp.T) + (qp ** 2).sum(1)[:, None],
             0.0))
-    rank = np.where(bias[None, :] == 0.0, rank, np.inf)
+    rank = np.where(valid[None, :], rank, np.inf)
     for i in range(b):
         order = np.lexsort((np.arange(n), rank[i]))[:count]
         got = np.asarray(slots)[i]
         assert set(got.tolist()) == set(order.tolist()), metric
         # best-first by (rank, slot)
-        got_ranks = np.asarray(ranks)[i]
+        got_ranks = rank[i][got]
         assert (np.diff(got_ranks) >= -1e-6).all()
 
 
-def test_funnel_fused_equals_xla(lowered):
+def test_funnel_fused_equals_xla():
+    """The device funnel returns the host funnel's ids and scores."""
     n, d = 2048, 256
     x = _corpus(n, d, seed=2)
     ids = [f"r-{i:04d}" for i in range(n)]
     col = Collection(name="fs", dimensions=d, metric="cosine", index="flat")
     col.put_matrix(ids, x)
     cache = col._scan_cache()
-    assert cache.cap == n  # pow2/tile sizing keeps the fused gate satisfied
-    assert col._funnel_stage_xsq(cache, [128, 256], 24) is not None
 
     rng = np.random.default_rng(3)
     qs = _corpus(4, d, seed=4) + 0.01 * rng.standard_normal((4, d)).astype(np.float32)
 
-    fused = col.funnel_search_batch(qs, limit=6, candidates=24, stages=[128, 256])
-    xla = [
-        [(r.id, r.score) for r in row]
-        for row in _xla_funnel(col, cache, qs, count=24)
-    ]
-    assert [[(r.id, r.score) for r in row] for row in fused] == xla
-
-
-def _xla_funnel(col, cache, qs, count):
-    """Force the XLA stage-1 path (stage_xsq None) for comparison."""
-    import jax
-
-    x, valid = cache.vectors()
+    got = col.funnel_search_batch(qs, limit=6, candidates=24, stages=[128, 256])
     prepared = col._prepare_query_batch(qs)
-    top, raws, ranks, finite = jax.device_get(pipe.funnel_pipeline_batch(
-        x, valid, jnp.asarray(prepared), None,
-        metric=col.metric, stages=(128, 256), count=count, limit=6))
-    assert bool(np.asarray(finite).all())
-    return [
-        col._slots_to_results(cache, top[b], raws[b], ranks[b])
-        for b in range(top.shape[0])
-    ]
+    for row, q in zip(got, prepared):
+        want = col._funnel_host(cache, q, [128, 256], 24, 6)
+        assert [r.id for r in row] == [r.id for r in want]
+        np.testing.assert_allclose([r.score for r in row],
+                                   [r.score for r in want], atol=1e-5)

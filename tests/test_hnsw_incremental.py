@@ -1,7 +1,7 @@
 """Incremental mutation of bulk-built HNSW graphs (hnsw_build.incremental_*).
 
 The reference mutates its graph per-record in O(ef·m) (hnsw.rs:152-289); the
-TPU build appends new slots through the wave kernel and soft-deletes via a
+device build appends new slots through the wave kernel and soft-deletes via a
 device validity mask — these tests pin the semantics: replace-on-put,
 tombstoned ids never surface, (rank, id) tie order, entry re-election,
 capacity growth, compaction, and snapshot round-trips with tombstones.

@@ -1,7 +1,7 @@
 """IVF index: routing build, approximate search, exactness-at-full-probe,
 mutation semantics, collection integration.
 
-The IVF index is a TPU-native extension (no reference counterpart; it fills
+The IVF index is an extension beyond the reference (no counterpart; it fills
 HNSW's role, hnsw.rs:292-333). Its contract: exact results below
 ``min_rows``; above, approximate with recall measured against the flat
 oracle; with ``n_probe >= n_blocks`` every block is probed and results must
@@ -365,8 +365,7 @@ def test_auto_n_probe_meets_target_on_clustered():
 def test_auto_n_probe_escalates_on_hard_corpus():
     """A structureless corpus needs more probes for the same target: auto
     must pick a larger n_probe on the uniform sphere than on the clustered
-    corpus (the round-4 verdict's 'recall is only proven on a friendly
-    corpus' gap, VERDICT.md item 4)."""
+    corpus (recall must not be proven on a friendly corpus only)."""
     n, d = 1536, 32
     easy = _auto_built(clustered(n, d, rng=np.random.default_rng(5)))
     hard = _auto_built(uniform(n, d, np.random.default_rng(5)))

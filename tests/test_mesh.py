@@ -63,8 +63,8 @@ def test_uneven_rows_pad():
 
 @pytest.mark.parametrize("data,k", [(1, 5), (2, 10)])
 def test_ici_merge_cost_model(data, k):
-    """The stated ICI merge cost model must equal the all_gather bytes in
-    the program the compiler actually sees (VERDICT r3 item 9)."""
+    """The stated interconnect merge cost model must equal the all_gather bytes in
+    the program the compiler actually sees."""
     import functools
 
     import jax.numpy as jnp

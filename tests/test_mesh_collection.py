@@ -1,6 +1,6 @@
 """Mesh-backed Collection lifecycle on the virtual 8-device CPU mesh:
 sharded ingest, search parity with a single-chip collection, mutation,
-snapshot/restore (VERDICT round-1 item 7; SURVEY §5.8)."""
+snapshot/restore (SURVEY §5.8)."""
 
 import jax
 import numpy as np
@@ -150,7 +150,7 @@ class TestMeshHnswCollection:
     def test_incremental_ingest_while_serving(self):
         """Mutations AFTER the first search go through the in-place shard
         graph mutation path (no full-mesh rebuild) and are immediately
-        visible to subsequent searches (VERDICT round-3 item 5)."""
+        visible to subsequent searches."""
         sharded, single, records, vectors = make_pair(index="hnsw", **self.OPTS)
         # first search bulk-builds the per-shard graphs
         assert sharded.search(list(vectors[0]), limit=3)[0].id == "doc-000"

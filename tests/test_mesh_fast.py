@@ -1,4 +1,4 @@
-"""Fast-tier sharded parity (VERDICT r4 item 9): the highest-value mesh
+"""Fast-tier sharded parity: the highest-value mesh
 asserts — every sharded search mode equals its single-chip counterpart —
 at 2-device scale so regressions surface in the default pytest loop, not
 only in the driver's 8-device dryrun or the slow `make test-mesh` tier.

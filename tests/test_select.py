@@ -1,9 +1,9 @@
 """ops/select group-descent selection: odd group counts and pad semantics.
 
 The descent path requires the group count to divide by 8; production caps
-guarantee that, but direct kernel users can pass any shape — group_topk now
-+inf-pads instead of silently falling back to the ~18 ms/batch direct
-bitonic top_k (the regression a mis-shaped 1M probe exposed)."""
+guarantee that, but direct kernel users can pass any shape — group_topk
++inf-pads instead of silently falling back to the much slower direct
+top_k."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -22,7 +22,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-TARGETS = ["vettore_tpu", "tests", "tools", "bench.py", "tpu_smoke.py",
+TARGETS = ["vettore_tpu", "tests", "tools", "bench.py", "chip_smoke.py",
            "__graft_entry__.py"]
 #: library files where print() is load-bearing (debug hooks, CLIs)
 PRINT_OK = {"vettore_tpu/index/hnsw_build.py",

@@ -1,12 +1,12 @@
-"""vettore-tpu: a TPU-native vector search framework.
+"""vettore-tpu: an accelerator vector search framework in JAX.
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of
 elchemista/vettore (in-memory vector collections with exact flat search, HNSW
 ANN, Matryoshka funnel staging, binary-quantized candidates, ColBERT MaxSim
 late interaction, MUVERA fixed-dimensional encodings, hybrid pipelines, MMR
-reranking, and checksummed snapshots) — redesigned for TPU hardware: vectors
-live in HBM-resident device blocks, scans run as fused MXU matmul + top-k
-programs, and collections larger than one chip shard across a
+reranking, and checksummed snapshots) — redesigned for an accelerator:
+vectors live in device-resident blocks, scans run as fused matmul + top-k
+programs, and collections larger than one device shard across a
 ``jax.sharding.Mesh``.
 
 Quick start::
@@ -24,21 +24,25 @@ Quick start::
 
 import os as _os
 
-# Persistent XLA compilation cache: Pallas/beam kernels take minutes to
-# compile on remote-compile backends; caching makes that a one-time cost.
-# Opt out with VETTORE_NO_COMPILE_CACHE=1.
-if not _os.environ.get("VETTORE_NO_COMPILE_CACHE"):
-    try:
-        import jax as _jax
+import jax as _jax
 
-        _cache_dir = _os.environ.get(
-            "VETTORE_COMPILE_CACHE", _os.path.expanduser("~/.cache/vettore_tpu/jax")
-        )
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+#: the checkout's own persistent compile cache (listed in .gitignore)
+_CHECKOUT_CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache")
+
+
+def _compile_cache_dir(environ=_os.environ):
+    """Where this package points JAX's persistent compile cache: None when
+    ``JAX_COMPILATION_CACHE_DIR`` is set (JAX honours it by itself), else
+    the checkout's fixed ``.jax_cache/`` — a fixed path, because the path is
+    part of the cache key."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _CHECKOUT_CACHE
+
+
+if _compile_cache_dir() is not None:
+    _jax.config.update("jax_compilation_cache_dir", _compile_cache_dir())
 
 from . import distance, errors, multi_vector, muvera, observability
 from .collection import Collection, load_snapshot

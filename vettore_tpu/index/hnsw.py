@@ -42,14 +42,13 @@ DEFAULT_OPTIONS = {
     "ef_construction": 100,
     "ef_search": 64,
     "max_level": 12,
-    # TPU-native extension: beam entries expanded per traversal iteration.
-    # Narrower = cheaper steps (W * m0 neighbor gathers), wider = more
-    # exploration per step at the same ef (recall can only rise with W
-    # at fixed ef; 1M x 768 measured: W=4 0.9916 recall / 10.6k QPS,
-    # W=8 0.9955 / 7.9k, W=16 0.9980 / 5.3k at ef=16).
+    # extension beyond the reference: beam entries expanded per traversal
+    # iteration. Narrower = cheaper steps (W * m0 neighbor gathers), wider =
+    # more exploration per step at the same ef (recall can only rise with W
+    # at fixed ef, at a higher cost per query).
     "expand_w": 8,
-    # TPU-native extension: bulk-construction algorithm. "knn" =
-    # cluster-blocked kNN assembly (dense MXU work, hnsw_knn_build.py);
+    # extension beyond the reference: bulk-construction algorithm. "knn" =
+    # cluster-blocked kNN assembly (dense matmul work, hnsw_knn_build.py);
     # "wave" = batched insertion waves; "auto" picks knn at scale.
     "build": "auto",
 }
@@ -64,7 +63,7 @@ _MAX_LEVEL = 64
 HNSW_METRICS = ("l2", "cosine", "inner_product")
 
 
-#: TPU-native extension: traversal precision. "bf16" (default) gathers and
+#: extension beyond the reference: traversal precision. "bf16" (default) gathers and
 #: scores a bfloat16 copy during beam selection — half the HBM bytes on the
 #: latency-dominant random gathers — while final result ordering is always
 #: exact f32 (rank, id). "f32" traverses at full precision.

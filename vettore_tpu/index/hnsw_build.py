@@ -2,7 +2,7 @@
 
 The reference builds its graph one sequential insert at a time
 (hnsw.rs:152-244) — inherently pointer-chasing and far too slow for
-million-scale ingest on a host loop. The TPU-native redesign inserts in
+million-scale ingest on a host loop. The device redesign inserts in
 *waves*:
 
 * nodes are ordered by (level desc, id) — deterministic FNV-1a levels mean
@@ -12,7 +12,7 @@ million-scale ingest on a host loop. The TPU-native redesign inserts in
   descent to the node's level, an ``ef_construction`` beam per layer, and
   neighbor truncation to m/m0 by (distance, id);
 * nodes inside a wave cannot see each other through the frozen graph, so
-  intra-wave candidates come from a ``[B, B]`` MXU distance matrix merged
+  intra-wave candidates come from a ``[B, B]`` matmul distance matrix merged
   into each layer's beam results;
 * reciprocal edges apply as one scatter/segment program per layer: edges
   sort by (dst, dist), cap incoming per node, union with the node's existing
@@ -65,7 +65,7 @@ HEURISTIC_SELECTION = True
 
 def _pairwise_rank(cvecs, metric):
     """Candidate-to-candidate rank distances [..., C, C]. Selection-only, so
-    bf16 MXU precision is fine."""
+    the default matmul precision (TF32 or bf16 inputs) is fine."""
     dots = jnp.einsum("...cd,...ed->...ce", cvecs, cvecs,
                       preferred_element_type=jnp.float32)
     if metric == "l2":
@@ -271,7 +271,7 @@ def load_graph(path: str, *, x_device=None) -> BulkGraph:
 #: beam entries expanded per construct-search iteration (same widened-beam
 #: scheme as the query kernel: exploration only grows at a given ef, while
 #: sequential depth and per-step merge cost drop ~W-fold); env override is
-#: for build-throughput experiments (_exp/build_sweep.py)
+#: for build-throughput experiments
 BUILD_EXPAND_W = int(os.environ.get("VETTORE_BUILD_W", "4"))
 
 
@@ -656,7 +656,7 @@ def bulk_build(metric: str, params: dict, ids, vectors=None, *, wave: int | None
     Two construction algorithms produce the same BulkGraph layout:
 
     * ``knn`` (default at scale): cluster-blocked kNN-graph construction —
-      dense MXU matmuls end to end (hnsw_knn_build.py);
+      dense matmuls end to end (hnsw_knn_build.py);
     * ``wave``: batched reference-style insertion waves (this module) — the
       same kernel incremental mutation uses.
     """
@@ -703,7 +703,7 @@ def bulk_build(metric: str, params: dict, ids, vectors=None, *, wave: int | None
         if env_wave:
             wave = int(env_wave)
         elif n >= 2**19:
-            wave = 8192  # ~20% faster steady-state than 4096 at 1M
+            wave = 8192  # bigger waves amortize per-wave costs at 1M
         else:
             wave = 4096 if n >= 2**17 else (2048 if n >= 2**14 else 1024)
 
@@ -760,7 +760,7 @@ def bulk_build(metric: str, params: dict, ids, vectors=None, *, wave: int | None
 # ---------------------------------------------------------------------------
 #
 # The reference mutates its graph one record at a time in O(ef·m) per insert
-# (hnsw.rs:152-289). The TPU equivalent keeps the bulk graph device-resident
+# (hnsw.rs:152-289). The device equivalent keeps the bulk graph device-resident
 # and appends through the same ``_wave_step`` kernel that built it:
 #
 # * device arrays are padded to a CAPACITY beyond ``n`` so per-put shapes

@@ -1,21 +1,21 @@
 """Batched HNSW beam search on device.
 
-The TPU-native redesign of the reference's pointer-chasing query path
+The device redesign of the reference's pointer-chasing query path
 (hnsw.rs:292-434): the graph lives in fixed-degree adjacency arrays
 (``[N, m0]`` int32, -1 padded; compacted ``[U, L, m]`` for upper layers), and
 a query batch traverses it inside one jitted program —
 
 * **hub seeding instead of greedy descent**: the upper hierarchy's job is
-  finding a good layer-0 entry; on TPU one dense ``[B, H] = Q · hubsᵀ`` MXU
-  matmul against the top-H nodes by level does it better — it yields S
-  independent seeds per query in microseconds, while a pointer-chasing
+  finding a good layer-0 entry; one dense ``[B, H] = Q · hubsᵀ`` matmul
+  against the top-H nodes by level does it better — it yields S
+  independent seeds per query in one pass, while a pointer-chasing
   descent costs a sequential gather chain. Both the single-chip path and
   the mesh path (``parallel.hnsw_mesh``, with pad rows masked via
   ``hub_valid``) seed this way; the descent code remains for callers that
   pass no hubs;
 * a widened beam at layer 0: each step expands the ``W`` best unexpanded
-  beam entries, gathers their ``W*m0`` neighbor vectors, scores them on the
-  MXU, masks visited nodes with a per-query bitset, and keeps the best ``ef``
+  beam entries, gathers their ``W*m0`` neighbor vectors, scores them with a
+  matmul, masks visited nodes with a per-query bitset, and keeps the best ``ef``
   via a single-key merge — the array equivalent of the reference's
   candidate/result heap pair;
 * **selection in bf16, ordering in f32**: traversal gathers and scores a
@@ -50,9 +50,9 @@ def _chunk_for(n: int) -> int:
 
 
 def hub_count(n: int) -> int:
-    """Size of the hub set (entry candidates scored densely on the MXU).
+    """Size of the hub set (entry candidates scored densely by one matmul).
     Scales with n so seed quality holds as the graph grows; the [B, H]
-    matmul stays microseconds even at the cap."""
+    matmul stays small even at the cap."""
     return min(max(1024, n // 64), 16384, n)
 
 
@@ -187,7 +187,7 @@ def _search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, que
         visited = jnp.zeros(words, jnp.uint32)
 
         if use_hubs:
-            # ---- hub seeding: one dense MXU scan of the top-H-by-level
+            # ---- hub seeding: one dense matmul scan of the top-H-by-level
             # nodes replaces the sequential greedy descent
             hd = _rank_rows(hub_x, qt, metric)
             if hub_valid is not None:
@@ -267,7 +267,7 @@ def _search_impl(x, a0, up_index, up_adj, lex_rank, entry_slot, entry_level, que
             # two expanded nodes can share a neighbor: dedup within the step
             # (the visited scatter-add needs unique bits, and duplicate beam
             # entries would corrupt the result set). Pairwise masking beats a
-            # sort here: [E, E] bool compare on the VPU — measured ~free.
+            # sort here: one [E, E] bool compare.
             E = nbrs.shape[0]
             key = jnp.where(valid, nbrs, -1)
             iota = jax.lax.iota(jnp.int32, E)

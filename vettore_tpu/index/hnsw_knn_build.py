@@ -2,13 +2,12 @@
 
 The wave build (hnsw_build.py) runs the reference's insert search batched —
 correct, but each construct beam is a sequential chain of ``W*m0``
-neighbor-row gathers, and scattered row gathers are the one access pattern
-this hardware punishes (~55 ns/row regardless of row width; see
-docs/PERF_ANALYSIS.md). A 1M x 768 build spends ~90% of its minutes waiting
-on those gathers.
+neighbor-row gathers, and scattered single-row gathers are the access
+pattern accelerators serve worst: a sequential chain of them leaves the
+matmul units idle.
 
 This module builds the SAME BulkGraph (levels, slot order, lex tie-breaks,
-entry, layer layout all identical) from dense MXU work instead, the way the
+entry, layer layout all identical) from dense matmul work instead, the way the
 IVF index (ops/ivf.py) replaced graph traversal for search:
 
 1. every layer's node set is a slot PREFIX (slots are (level desc, id)
@@ -59,9 +58,7 @@ from .hnsw_build import (
 
 GROUP = 64
 #: neighbor blocks scored per block (x64 rows = the candidate pool per row).
-#: 1M x 768 measured: 16 -> recall@10 0.971 @ ef=16, 19.9 s warm build;
-#: 24 -> 0.981 @ ef=16, 22.1 s — the extra 11% build cost buys the cheapest
-#: ef tier at query time
+#: More probes cost build time and buy recall at a low query-time ef
 PROBES = int(os.environ.get("VETTORE_KNN_PROBES", "24"))
 #: k-means refinement sweeps over the layer prefix
 KMEANS_ITERS = int(os.environ.get("VETTORE_KNN_ITERS", "4"))
@@ -91,7 +88,7 @@ def _rank_from_dots(dots, rsq, csq, metric):
 # ---------------------------------------------------------------------------
 # layer setup: k-means over the (bf16) layer prefix, cluster-major sort, and
 # block probe lists — ONE jitted program per layer shape (an eager-op version
-# was measured spending minutes in per-op compiles on the 1-CPU test box)
+# spends minutes in per-op compiles on a small CPU host)
 # ---------------------------------------------------------------------------
 
 
@@ -111,6 +108,7 @@ def _kmeans_assign(xt_pad, w, ngb: int, metric: str):
         cent = jnp.pad(cent, ((0, ngb - cent.shape[0]), (0, 0)))
 
     def assign_chunk(cent_t, csq, xc):
+        # selection-only (routing): default matmul precision suffices
         dots = jnp.dot(xc, cent_t.astype(xc.dtype),
                        preferred_element_type=jnp.float32)
         if spherical:
@@ -175,6 +173,7 @@ def _layer_setup(xt, lex_d, nl, *, ngb, probes, metric):
     w = valid_s.astype(jnp.float32).reshape(ngb, GROUP)
     cent = (jnp.sum(xs.astype(jnp.float32).reshape(ngb, GROUP, d) * w[..., None],
                     axis=1) / jnp.maximum(jnp.sum(w, axis=1), 1.0)[:, None])
+    # selection-only (neighbor-block routing): bf16 operands suffice
     cdots = jnp.dot(cent.astype(jnp.bfloat16), cent.astype(jnp.bfloat16).T,
                     preferred_element_type=jnp.float32)
     if metric == "l2":
@@ -219,6 +218,8 @@ def _knn_chunk(adj, dist, xs, valid_s, lex_s, slot_s, nb_chunk, g0, *,
     xsb = xs.reshape(capb // GROUP, GROUP, d)
     pool = xsb[nb_chunk].reshape(G, PC, d)
 
+    # selection-only (candidate edges; the query path re-scores results in
+    # f32): default matmul precision suffices
     dots = jnp.einsum("gkd,gcd->gkc", rows, pool,
                       preferred_element_type=jnp.float32)
     if metric == "l2":
@@ -280,7 +281,7 @@ def _knn_chunk(adj, dist, xs, valid_s, lex_s, slot_s, nb_chunk, g0, *,
     if HEURISTIC_SELECTION:
         cvecs = jnp.take_along_axis(
             pool[:, None, :, :], top_cidx[..., None], axis=2)  # [G, K, C, d]
-        pdots = jnp.einsum("gkcd,gked->gkce", cvecs, cvecs,
+        pdots = jnp.einsum("gkcd,gked->gkce", cvecs, cvecs,  # selection-only
                            preferred_element_type=jnp.float32)
         if metric == "l2":
             cs2 = jnp.sum(cvecs.astype(jnp.float32) ** 2, axis=-1)
@@ -365,7 +366,7 @@ def _reciprocal_pass(adj, dist, xt, lex_rank, nl, *, metric, deg):
         cand_s = jnp.where(dup, -1, cand_s)
         if HEURISTIC_SELECTION:
             cvecs = xt[jnp.minimum(jnp.maximum(cand_s, 0), n - 1)]
-            pdots = jnp.einsum("rcd,red->rce", cvecs, cvecs,
+            pdots = jnp.einsum("rcd,red->rce", cvecs, cvecs,  # selection-only
                                preferred_element_type=jnp.float32)
             if metric == "l2":
                 cs2 = jnp.sum(cvecs.astype(jnp.float32) ** 2, axis=-1)

@@ -1,14 +1,12 @@
 """IVF approximate index: k-means routing + contiguous-block rescore.
 
-A TPU-native ANN index with no reference counterpart — it fills the same
+An accelerator ANN index with no reference counterpart — it fills the same
 role as the reference's HNSW (sub-linear approximate search,
 /root/reference/native/vettore/src/hnsw.rs:292-333) with a design built for
-the MXU instead of for pointer-chasing: build is dense k-means (seconds at
-1M x 768 vs minutes for graph waves), search routes queries to
-``n_probe`` contiguous 64-row blocks and rescores only those (see
-ops/ivf.py for the kernel-level rationale). Measured 1M x 768 cosine,
-batch 512, one v5e: n_probe=4 -> ~111k QPS at recall@10 ~0.98 vs the 38k
-exact bf16 scan.
+dense matmuls instead of for pointer-chasing: build is dense k-means, search
+routes queries to ``n_probe`` contiguous 64-row blocks and rescores only
+those (see ops/ivf.py for the kernel-level rationale). Not measured on the
+H100 yet.
 
 Semantics:
 
@@ -281,7 +279,7 @@ class IvfIndex(Index):
         property of the actual corpus geometry, not a caller guess (the
         reference leaves the equivalent ef_search guess to the caller,
         /root/reference/lib/vettore/index/hnsw.ex:13-19; an adaptive default
-        is the TPU build's answer to the same tuning problem). Probed rows
+        is this index's answer to the same tuning problem). Probed rows
         self-route, so the sample measures neighborhood retrieval across
         block boundaries: the other 9 of each row's top-10."""
         mirror = self._mirror

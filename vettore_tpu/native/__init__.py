@@ -3,21 +3,26 @@
 The compute path is JAX/XLA/Pallas on device; this module accelerates the
 host-side ingest pipeline (batch FNV-1a hashing, HNSW level assignment,
 sign-bit packing, packed-Hamming scans). The shared library compiles lazily
-with the system g++ and caches next to the source; every op has a pure-Python
-fallback so the package works without a toolchain.
+with the system g++ for a portable target of the host's architecture (no
+``-march=native``: a checkout copied to another machine must not carry
+instructions its CPU lacks) and caches next to the source under a name keyed
+by that architecture; every op has a pure-Python fallback so the package
+works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "vettore_native.cpp")
-_LIB = os.path.join(os.path.dirname(__file__), "_vettore_native.so")
+_LIB = os.path.join(os.path.dirname(__file__),
+                    f"_vettore_native.{platform.machine() or 'unknown'}.so")
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
@@ -33,7 +38,7 @@ def _load():
         try:
             if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
                 subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", _LIB, _SRC],
+                    ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB, _SRC],
                     check=True, capture_output=True, timeout=120,
                 )
             lib = ctypes.CDLL(_LIB)

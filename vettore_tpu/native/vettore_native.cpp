@@ -1,6 +1,6 @@
-// Native host-side runtime ops for vettore-tpu.
+// Native host-side runtime ops for vettore.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library accelerates
+// The accelerator owns the compute path (JAX/XLA/Pallas); this library accelerates
 // the host-side ingest pipeline that feeds it — the role the reference's
 // Rust crate plays for its BEAM host (/root/reference/native/vettore/).
 // Exposed through a plain C ABI and loaded with ctypes (no pybind11 in the

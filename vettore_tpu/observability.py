@@ -2,7 +2,7 @@
 
 The reference has no metrics/logging subsystem (verified: no Logger/telemetry
 in lib/, SURVEY §5.5) — this is a new, deliberately lightweight design for
-the TPU build: every public collection operation records a count, error
+this library: every public collection operation records a count, error
 count, and latency aggregates; ``Collection.stats()`` returns a snapshot.
 Recording costs two clock reads and a lock; nothing is logged.
 

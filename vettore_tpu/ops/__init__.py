@@ -1,2 +1,2 @@
-"""Device kernels and pure algorithm helpers (the TPU-native equivalent of the
+"""Device kernels and pure algorithm helpers (the accelerator equivalent of the
 reference's Rust compute core, /root/reference/native/vettore/src/)."""

@@ -9,7 +9,7 @@ batched scans (/root/reference/native/vettore/src/distances.rs):
   equivalents of `Vettore.Distance.*` (/root/reference/lib/vettore_distance.ex).
 
 * **Batched device scoring** (`batched_raw_scores`): jitted JAX functions that
-  score a whole `[N, d]` block against one query in a single fused XLA/MXU
+  score a whole `[N, d]` block against one query in a single fused XLA
   computation. This replaces the reference's per-row SIMD loop
   (distances.rs:197-308) with matmul-based kernels. f32 intermediates that
   overflow are recovered on host in float64 (`recover_overflow`), matching
@@ -322,7 +322,7 @@ def normalize_vector(vector, method: str) -> list:
 
 #: rows processed per normalization chunk — bounds the transient f64
 #: working set of million-row ingests to ~512 MB instead of 3 full-matrix
-#: f64 temporaries (the round-2 bench spent ~40% of 1M ingest on them)
+#: f64 temporaries
 _NORM_CHUNK_ELEMS = 1 << 26
 
 
@@ -377,8 +377,8 @@ def batched_raw_scores(x, q, *, metric: str, use_true_cosine: bool = False):
     """
     x = x.astype(jnp.float32)
     q = q.astype(jnp.float32)
-    # MXU matmuls default to bf16 passes on TPU; full f32 precision is
-    # required for parity with the reference's f32 SIMD kernels.
+    # a default-precision f32 matmul may run in TF32 on the GPU; full f32
+    # precision is required for parity with the reference's f32 SIMD kernels.
     matvec = functools.partial(
         jnp.dot, precision=jax.lax.Precision.HIGHEST, preferred_element_type=jnp.float32
     )
@@ -427,7 +427,7 @@ def recover_overflow(metric: str, x_np: np.ndarray, q_np: np.ndarray, raw_np: np
                      *, use_true_cosine: bool = False) -> np.ndarray:
     """Recomputes non-finite f32 scores in float64 on host.
 
-    The TPU batch computes in f32; intermediates can overflow even when the
+    The device batch computes in f32; intermediates can overflow even when the
     mathematical result is representable (the reference hits the same with
     SIMD f32 and recovers per-pair in f64, distances.rs:59-98). Raises
     MetricOverflow when a recovered value is genuinely outside f32 range.

@@ -1,55 +1,47 @@
-"""Fused exact flat scan: Pallas matmul+group-min kernel + candidate rescore.
+"""Exact flat scan: pass-1 group minima, candidate-group rescore, exact top-k.
 
-TPU-native replacement for the reference's per-row SIMD metric loop with a
-bounded heap (/root/reference/native/vettore/src/flat.rs:96-124). The XLA
-formulation (round 3's first cut) materialized the full ``[B, N]`` rank
-matrix in HBM (2 GB at 1M x 512) just to reduce it to per-group minima; the
-Pallas pipeline keeps scores in VMEM end to end:
+Replaces the reference's per-row SIMD metric loop with a bounded heap
+(/root/reference/native/vettore/src/flat.rs:96-124) by a batched device
+program over the whole ``[N, d]`` block:
 
-* **pass 1** (``_gmin_scan``): grid over row tiles — MXU matmul, rank
-  conversion, and a 64-row group-min, all in VMEM; only ``[N/64, B]`` group
-  minima (32 MB) reach HBM. The kernel epilogue is exactly two VPU passes
-  (bias add + group min): overflow safety is proven per batch OUTSIDE the
-  kernel by a Cauchy-Schwarz norm bound (queries that could overflow an
-  f32 accumulator flag ``ok=False`` → f64 host oracle), replacing the
-  in-kernel isfinite/select passes that cost nearly as much as the matmul.
-* **group selection** (XLA): ``top_k`` of ``k + slack`` groups per query,
-  exact by the order-statistic bound — the k smallest group-mins are k
-  distinct elements, so any group whose min exceeds the k-th smallest
-  group-min cannot contain a top-k element. Ties at the boundary deeper
-  than the slack raise the ``ok`` flag (host-oracle fallback).
-* **pass 2** (``_rescore``): scalar-prefetch grid over (query, group) —
-  each step streams one contiguous 64-row block (chosen by the prefetched
-  group index) and recomputes its ranks; no [B, N]-sized gather.
+* **pass 1**: per query, the minimum rank of every 64-row group
+  (``[B, N/64]``). With bf16 storage on the GPU this is a Pallas kernel
+  through Triton (``_gmin_scan``): each block runs the tile's matmul over a
+  K loop, converts dots to ranks and reduces 64-row groups in registers, so
+  the ``[B, N]`` f32 rank matrix never reaches device memory (at 512 x 1M it
+  is 2 GB written and read back, more than the 1.5 GB corpus the scan must
+  read). Everywhere else XLA's plain formulation serves
+  (``_fused_xla_search``: one matmul, the rank matrix, its group minima);
+  :func:`pass1_impl` makes the choice from the platform and the shapes.
+* **group selection**: ``top_k`` of ``k + slack`` groups per query, exact by
+  the order-statistic bound — the k smallest group-mins are k distinct
+  elements, so any group whose min exceeds the k-th smallest group-min
+  cannot contain a top-k element. Ties at the boundary deeper than the slack
+  raise the ``ok`` flag (host-oracle fallback).
+* **pass 2** (``_rescore``): gathers the selected 64-row groups and scores
+  them as a multiply-and-sum in exact f32 arithmetic; XLA fuses the gather
+  into the reduction.
 * **final selection**: ``top_k(k + tie pad)`` by rank, then a small
   (rank, lex id) sort — reference (rank, id) tie-break, flat.rs:34-40. A
   rank tie straddling the pad boundary sets ``ok`` False (lex order not
   provable without the full candidate sort), falling back to the host
   oracle like overflow does.
-
-Measured on 1M x 768 cosine, batch 512 (TPU v5e): 35 ms/batch f32-HIGHEST
-(14.6k QPS; the HIGHEST-precision matmul alone measures 33 ms — the f32
-exact path is compute-bound at ~94% of its matmul roofline) and 14.1 ms
-bf16 storage (36.2k QPS) — vs 50/34 ms for the XLA formulation and 208 ms
-for the round-2 k-pass tile kernel. ``VETTORE_FLAT_IMPL=xla`` forces the
-XLA path; shapes whose working set exceeds the VMEM budget fall back to it
-automatically.
 """
 
 from __future__ import annotations
 
 import functools
-import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from . import select
 
-#: rows per selection group (one f32 sublane tile x 8; divides every block
-#: capacity >= 64 produced by the flat index's tile-multiple sizing)
+#: rows per selection group (divides every block capacity >= 64 produced by
+#: the flat index's sizing)
 GROUP = 64
 
 #: extra groups gathered beyond k — absorbs cross-group ties at the k-th
@@ -61,68 +53,101 @@ GROUP_SLACK = 8
 #: complete (deeper ties raise the fallback flag)
 TIE_PAD = 16
 
-#: largest supported k (same bucket cap as the round-2 kernel)
+#: largest supported k
 MAX_FUSED_K = 128
 
 FUSED_METRICS = ("cosine", "inner_product", "negative_inner_product", "l2", "l2_squared")
 
 _BIG32 = 2**31 - 1
 
-#: scoped-VMEM budget for pass-1 kernel buffers (hardware limit 16 MiB; the
-#: estimate below under-counts Mosaic temporaries, so leave real headroom)
-_VMEM_BUDGET = 10 * 2**20
+#: pass-1 kernel tiles: rows per block (four selection groups for 16-bit
+#: storage; two for f32, whose tiles cost twice the registers, or when the
+#: block size only divides by 128), the K step over ``d`` (largest that
+#: divides it), and the query-tile bounds (Triton blocks are powers of two;
+#: a dot operand needs at least 16 rows). Chosen by a tile sweep on one
+#: H100 at 1M x 768 bf16, batches 1, 64 and 512
+_TILE_ROWS = (256, 128)
+_TILE_K = (64, 32, 16)
+_MIN_QUERY_TILE = 16
+_MAX_QUERY_TILE = 128
+
+
+class Tiles(NamedTuple):
+    """One pass-1 kernel configuration: rows and queries per block, the K
+    step, and Triton's warps and pipeline stages."""
+
+    rows: int
+    queries: int
+    k: int
+    warps: int
+    stages: int
+
+
+def _tiles(n: int, b: int, d: int, itemsize: int = 2) -> Tiles:
+    tb = _query_tile(b)
+    rows = next((r for r in _TILE_ROWS if n % r == 0 and r * itemsize <= 512),
+                _TILE_ROWS[-1])
+    return Tiles(rows, tb, _tile_k(d), 8 if tb >= 128 else 4, 3)
 
 
 def supports(metric: str, cap: int, k: int) -> bool:
-    """Whether the fused group-min scan handles this configuration."""
+    """Whether the group-min scan handles this configuration."""
     return metric in FUSED_METRICS and cap % GROUP == 0 and 0 < k <= MAX_FUSED_K
 
 
-def _pick_row_tile(n: int, d: int, b: int, itemsize: int, tb_factor=2.5):
-    """Largest row tile whose pass-1 working set fits the VMEM budget:
-    double-buffered x tile + rank block and temporaries + resident q^T
-    (``tb_factor`` scales the rank-block term — the stage-candidate variant
-    holds an extra transposed rank tile). Tiles below 512 rows would break
-    the gmin output block's 8-sublane minimum (tile/GROUP >= 8). Returns
-    None when nothing fits."""
-    for t in (1024, 512):
-        if n % t:
-            continue
-        est = 2 * t * d * itemsize + tb_factor * t * b * 4 + d * b * itemsize
-        if est <= _VMEM_BUDGET:
-            return t
-    return None
+def _tile_k(d: int):
+    return next((t for t in _TILE_K if d % t == 0), None)
+
+
+def pass1_impl(platform: str, dtype, n: int, d: int) -> str:
+    """Pass-1 route for an ``[n, d]`` block of ``dtype`` on ``platform``:
+    ``"triton"`` (the Pallas group-min kernel) or ``"xla"``.
+
+    The kernel serves bf16 storage on the GPU, where it skips the rank
+    matrix's round trip through device memory. f32 storage ranks at
+    ``HIGHEST``: a true-f32 product has no tensor-core form, cuBLAS's SGEMM
+    is the faster route and dwarfs the rank-matrix traffic, so XLA keeps it.
+    Other platforms have no compiled kernel and take XLA."""
+    if (
+        platform == "gpu"
+        and jnp.dtype(dtype) == jnp.bfloat16
+        and n % _TILE_ROWS[-1] == 0
+        and _tile_k(d) is not None
+    ):
+        return "triton"
+    return "xla"
+
+
+def _query_tile(b: int) -> int:
+    return min(_MAX_QUERY_TILE, max(_MIN_QUERY_TILE, pl.next_power_of_2(b)))
 
 
 # ---------------------------------------------------------------------------
-# pass 1: matmul + group-min (Pallas)
+# pass 1: matmul + group-min (Pallas through Triton)
 # ---------------------------------------------------------------------------
 
 
-def _gmin_body(x_ref, xsq_ref, bias_ref, qt_ref, qsq_ref, gmin_ref,
-               *, metric, fast):
-    dots = jnp.dot(
-        x_ref[:], qt_ref[:],
-        preferred_element_type=jnp.float32,
-        precision=None if fast else jax.lax.Precision.HIGHEST,
-    )  # [T, B]
+def _gmin_body(x_ref, xsq_ref, bias_ref, q_ref, qsq_ref, gmin_ref, *,
+               metric, tile_k, precision):
+    tb, tr = q_ref.shape[0], x_ref.shape[0]
+
+    def k_step(i, acc):
+        cols = pl.ds(pl.multiple_of(i * tile_k, tile_k), tile_k)
+        return acc + pl.dot(q_ref[:, cols], x_ref[:, cols], trans_b=True,
+                            precision=precision)
+
+    dots = jax.lax.fori_loop(0, x_ref.shape[1] // tile_k, k_step,
+                             jnp.zeros((tb, tr), jnp.float32))  # [TB, TR]
     if metric in ("cosine", "inner_product", "negative_inner_product"):
         # shared rank key: -dot (cosine's 1-dot offset applied at the end)
         rank = -dots
     else:  # l2 / l2_squared on squared distance (monotonic in true rank)
-        rank = xsq_ref[:] - 2.0 * dots + qsq_ref[:]
-    # NO per-element finiteness pass here: the epilogue is two VPU passes
-    # (bias add + group min) over [T, B], which matters — isfinite+select
-    # used to cost as much again as the matmul. Overflow safety is proved
-    # OUTSIDE the kernel per query (Cauchy-Schwarz bound in _gmin_scan):
-    # queries whose norm product could overflow an f32 accumulator are
-    # flagged ok=False and re-run on the f64 host oracle
-    # (distances.rs:59-98 posture), so every rank computed here is finite
-    # by construction. Invalid rows go to +inf via bias (dead slots are
-    # zeroed, so their dot is 0 and the +inf survives untouched).
-    rank = rank + bias_ref[:]
-    t, b = rank.shape
-    gmin_ref[:] = jnp.min(rank.reshape(t // GROUP, GROUP, b), axis=1)
+        rank = xsq_ref[...][None, :] - 2.0 * dots + qsq_ref[...][:, None]
+    # no per-element finiteness pass: the wrapper proves every rank finite
+    # (Cauchy-Schwarz bound in _gmin_scan); invalid rows reach +inf through
+    # the bias (dead slots are zeroed, so their dot is 0 and +inf survives)
+    rank = rank + bias_ref[...][None, :]
+    gmin_ref[...] = jnp.min(rank.reshape(tb, tr // GROUP, GROUP), axis=2)
 
 
 #: overflow-proof bound: per-term cap so |xsq| + 2|dot| + |qsq| stays under
@@ -131,115 +156,104 @@ _SAFE_LIM = 4e37
 _SAFE_LOG = 86.0  # log(2.2e37) >= log(|dot|) bound via Cauchy-Schwarz
 
 
-def _gmin_scan(x, xsq, bias, q, *, metric, row_tile):
+def _gmin_scan(x, xsq, bias, q, *, metric, interpret=False):
     """Group minima of the rank matrix: ``[B, N/GROUP]`` f32 plus a scalar
-    ``bounded`` flag — the full ``[B, N]`` never leaves VMEM.
+    ``bounded`` flag — the full ``[B, N]`` never leaves the kernel's
+    registers.
 
-    The kernel epilogue carries no finiteness checks (see ``_gmin_body``);
-    instead this wrapper proves per batch that no rank can overflow:
-    every partial sum of ``x_row . q`` is bounded by ``|x_row| * |q|``
-    (Cauchy-Schwarz holds for every prefix), so when
-    ``max_row_norm * max_query_norm`` and the squared-norm terms sit well
-    under f32 max, every intermediate is finite. A batch that fails the
-    bound returns ``bounded=False`` → caller's ok=False → f64 host oracle
-    (the same route the old -inf overflow flag took, minus two VPU passes
-    per tile for the ~always-bounded common case)."""
+    Each block scores ``tiles.rows`` rows against one query tile, walking
+    ``d`` in ``tiles.k`` steps with bf16 operands and f32 accumulation. The
+    grid's first axis is the query tile, so the blocks that share a row tile
+    run back to back and read it from L2. :func:`_tiles` picks the tiles.
+
+    The kernel epilogue carries no finiteness checks; instead this wrapper
+    proves per batch that no rank can overflow: every partial sum of
+    ``x_row . q`` is bounded by ``|x_row| * |q|`` (Cauchy-Schwarz holds for
+    every prefix), so when ``max_row_norm * max_query_norm`` and the
+    squared-norm terms sit well under f32 max, every intermediate is finite.
+    A batch that fails the bound returns ``bounded=False`` → caller's ok=False
+    → f64 host oracle."""
     n, d = x.shape
     b = q.shape[0]
-    fast = x.dtype == jnp.bfloat16
-    qsq = jnp.sum(q.astype(jnp.float32) ** 2, axis=1)[None, :]  # [1, B]
+    xsq = xsq.reshape(-1)
+    bias = bias.reshape(-1)
+    t = _tiles(n, b, d, x.dtype.itemsize)
+    if n % t.rows or t.k is None:
+        raise ValueError(f"pass-1 kernel needs n % {t.rows} == 0 and "
+                         f"d % {_TILE_K[-1]} == 0, got {x.shape}")
+    qf = q.astype(jnp.float32)
+    qsq = jnp.sum(qf * qf, axis=1)  # [B]
     xsq_max = jnp.max(xsq)
     qlog = 0.5 * jnp.log(jnp.maximum(qsq, 1e-30))
     xlog = 0.5 * jnp.log(jnp.maximum(xsq_max, 1e-30))
     bounded = jnp.all(
         (qsq < _SAFE_LIM) & (xsq_max < _SAFE_LIM) & (qlog + xlog < _SAFE_LOG))
-    qt = (q.astype(jnp.bfloat16) if fast else q).T  # one transpose per batch
-    tiles = n // row_tile
-    kernel = functools.partial(_gmin_body, metric=metric, fast=fast)
+    tb = t.queries
+    bp = -(-b // tb) * tb
+    # zero pad queries rank every row finitely; their rows are sliced off
+    qk = jnp.pad(qf, ((0, bp - b), (0, 0))).astype(x.dtype)
+    qsq_p = jnp.pad(qsq, (0, bp - b))
+    fast = x.dtype == jnp.bfloat16
+    kernel = functools.partial(
+        _gmin_body, metric=metric, tile_k=t.k,
+        precision=None if fast else jax.lax.Precision.HIGHEST)
     gmin = pl.pallas_call(
         kernel,
-        grid=(tiles,),
+        grid=(bp // tb, n // t.rows),
         in_specs=[
-            pl.BlockSpec((row_tile, d), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((d, b), lambda i: (0, 0)),
-            pl.BlockSpec((1, b), lambda i: (0, 0)),
+            pl.BlockSpec((t.rows, d), lambda j, i: (i, 0)),
+            pl.BlockSpec((t.rows,), lambda j, i: (i,)),
+            pl.BlockSpec((t.rows,), lambda j, i: (i,)),
+            pl.BlockSpec((tb, d), lambda j, i: (j, 0)),
+            pl.BlockSpec((tb,), lambda j, i: (j,)),
         ],
-        out_specs=pl.BlockSpec((row_tile // GROUP, b), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n // GROUP, b), jnp.float32),
+        out_specs=pl.BlockSpec((tb, t.rows // GROUP), lambda j, i: (j, i)),
+        out_shape=jax.ShapeDtypeStruct((bp, n // GROUP), jnp.float32),
+        compiler_params=plt.CompilerParams(num_warps=t.warps, num_stages=t.stages),
+        backend="triton",
+        interpret=interpret,
+        name="flat_gmin_scan",
         cost_estimate=pl.CostEstimate(
-            flops=2 * n * d * b,
-            bytes_accessed=n * d * x.dtype.itemsize + b * d * 4 + n // GROUP * b * 4,
+            flops=2 * n * d * bp,
+            bytes_accessed=n * d * x.dtype.itemsize + bp * d * x.dtype.itemsize
+            + bp * (n // GROUP) * 4,
             transcendentals=0,
         ),
-        interpret=jax.default_backend() == "cpu",
-    )(x, xsq.reshape(-1, 1), bias.reshape(-1, 1), qt, qsq)
-    return gmin.T, bounded
+    )(x, xsq, bias, qk, qsq_p)
+    return gmin[:b], bounded
 
 
 # ---------------------------------------------------------------------------
-# pass 2: candidate-group rescore (Pallas, scalar-prefetched group indices)
+# pass 2: candidate-group rescore (XLA gather + multiply-and-sum)
 # ---------------------------------------------------------------------------
-
-
-def _rescore_body(gidx_ref, x_ref, xsq_ref, bias_ref, q_ref, out_ref,
-                  *, metric, fast):
-    del gidx_ref, fast  # routing happens in the BlockSpec index_maps
-    b = pl.program_id(0)
-    qm = q_ref[pl.ds(b, 1), :]  # [1, d]; q stays f32 — dynamic bf16 sublane
-    # indexing needs an alignment proof Mosaic can't make
-    # mul-reduce matvec (Mosaic's dot_general matvec path miscompiles mixed
-    # dtypes; GROUP x d MACs per step are VPU noise next to the DMA)
-    dots = jnp.sum(
-        x_ref[:].astype(jnp.float32) * qm.astype(jnp.float32),
-        axis=1, keepdims=True)  # [GROUP, 1]
-    if metric in ("cosine", "inner_product", "negative_inner_product"):
-        rank = dots * -1.0
-    else:
-        qsq = jnp.sum(qm.astype(jnp.float32) ** 2)
-        rank = xsq_ref[:] - 2.0 * dots + qsq
-    rank = rank + bias_ref[:]
-    rank = jnp.where(jnp.isfinite(rank), rank, jnp.inf)
-    g = pl.program_id(1)
-    out_ref[0, pl.ds(g, 1), :] = rank.reshape(1, -1)
 
 
 def _rescore(x, xsq, bias, q, gidx, *, metric):
     """Ranks of every row of the selected groups: ``[B, gsel, GROUP]`` f32.
-    Each grid step DMA-streams one contiguous GROUP-row block of ``x``
-    (group index scalar-prefetched), so cost is ~B * gsel * GROUP row reads —
-    independent of N."""
-    b, gsel = gidx.shape
-    d = x.shape[1]
-    kernel = functools.partial(
-        _rescore_body, metric=metric, fast=x.dtype == jnp.bfloat16)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b, gsel),
-        in_specs=[
-            pl.BlockSpec((GROUP, d), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((GROUP, 1), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((GROUP, 1), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((b, d), lambda i, g, gidx: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, gsel, GROUP), lambda i, g, gidx: (i, 0, 0)),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, gsel, GROUP), jnp.float32),
-        interpret=jax.default_backend() == "cpu",
-    )(gidx, x, xsq.reshape(-1, 1), bias.reshape(-1, 1), q)
+    Each query reads only its ``gsel`` groups (cost independent of N). The
+    multiply-and-sum keeps the f32 products exact, with no matmul precision
+    mode in play."""
+    n, d = x.shape
+    rows = x.reshape(n // GROUP, GROUP, d)[gidx].astype(jnp.float32)
+    qf = q.astype(jnp.float32)
+    dots = jnp.sum(rows * qf[:, None, None, :], axis=-1)  # [B, gsel, GROUP]
+    if metric in ("cosine", "inner_product", "negative_inner_product"):
+        rank = -dots
+    else:
+        qsq = jnp.sum(qf * qf, axis=1)[:, None, None]
+        rank = xsq.reshape(-1, GROUP)[gidx] - 2.0 * dots + qsq
+    rank = rank + bias.reshape(-1, GROUP)[gidx]
+    return jnp.where(jnp.isfinite(rank), rank, jnp.inf)
 
 
 # ---------------------------------------------------------------------------
-# end-to-end fused search
+# end-to-end search
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnames=("metric", "k"))
-def fused_flat_search(x, xsq, bias, lex_rank, q, *, metric, k):
+@functools.partial(jax.jit, static_argnames=("metric", "k", "impl", "interpret"))
+def fused_flat_search(x, xsq, bias, lex_rank, q, *, metric, k, impl=None,
+                      interpret=False):
     """Exact batched top-k over a device block.
 
     ``x`` [N, d] (f32 or bf16 storage), ``xsq`` [N, 1] f32 squared norms,
@@ -247,6 +261,10 @@ def fused_flat_search(x, xsq, bias, lex_rank, q, *, metric, k):
     lexicographic id ranks, ``q`` [B, d] f32 queries. Invalid rows of ``x``
     must be all-zero (the flat index zeroes dead slots) so their rank is
     exactly the +inf bias.
+
+    ``impl`` picks pass 1 (``"triton"`` or ``"xla"``; None = :func:`pass1_impl`
+    for this platform and block). ``interpret`` runs the Triton kernel in the
+    Pallas interpreter — for tests on machines without a GPU.
 
     Returns ``(slots [B, k] i32, raws [B, k] f32, ranks [B, k] f32, ok)``
     best-first with (rank, lex id) tie-break; ``ok`` False means the batch
@@ -257,17 +275,20 @@ def fused_flat_search(x, xsq, bias, lex_rank, q, *, metric, k):
     b = q.shape[0]
     xsq = xsq.reshape(-1)
     bias = bias.reshape(-1)
-    row_tile = _pick_row_tile(n, d, b, x.dtype.itemsize)
-    if row_tile is None or os.environ.get("VETTORE_FLAT_IMPL") == "xla":
+    if impl is None:
+        impl = pass1_impl(jax.default_backend(), x.dtype, n, d)
+    if impl == "xla":
         return _fused_xla_search(x, xsq, bias, lex_rank, q, metric=metric, k=k)
+    if impl != "triton":
+        raise ValueError(f"unknown pass-1 impl {impl!r}")
 
     gmin, bounded = _gmin_scan(x, xsq, bias, q, metric=metric,
-                               row_tile=row_tile)
+                               interpret=interpret)
     ng = n // GROUP
     gsel = min(k + GROUP_SLACK, ng)
     # tie spill check at the K boundary: every group with min <= m_k must be
     # selected (GROUP_SLACK absorbs up to 8 tied groups past it)
-    gtop, gidx, g_ok = select.group_topk(gmin, gsel, check_c=k)
+    _gtop, gidx, g_ok = select.group_topk(gmin, gsel, check_c=k)
     spill_ok = jnp.all(g_ok)
 
     cand = _rescore(x, xsq, bias, q, gidx, metric=metric).reshape(
@@ -318,529 +339,11 @@ def _finalize(x, q, top_slot, top_rank, *, metric):
     return top_slot, raw, top_rank
 
 
-# ---------------------------------------------------------------------------
-# fused stage candidates (funnel stage 1): prefix matmul + group-min +
-# group-cover rescore, never materializing the [B, N] rank matrix
-# ---------------------------------------------------------------------------
-
-#: largest candidate count the fused stage path serves (bounds the pass-2
-#: group-rescore DMA: B * (C + slack) * GROUP * dims bytes)
-MAX_FUSED_C = 512
-
-
-def supports_candidates(metric: str, cap: int, dims: int, count: int) -> bool:
-    """Whether the fused prefix-candidate scan handles this configuration.
-    ``dims % 128`` keeps the pass-1 block on lane-tile boundaries."""
-    return (
-        metric in FUSED_METRICS
-        and cap % GROUP == 0
-        and dims % 128 == 0
-        and 0 < count <= MAX_FUSED_C
-    )
-
-
-def _stage_rank(dots, xsq, qsq, *, metric):
-    """True stage-metric rank from prefix dots — the SAME formulas as
-    pipeline._rank_full (true cosine at every width, search.rs:56-58), so
-    fused and XLA candidate selections order identically up to matmul
-    rounding. ``dots`` [T, B], ``xsq`` [T, 1], ``qsq`` [1, B]."""
-    if metric == "cosine":
-        denom = jnp.sqrt(xsq) * jnp.sqrt(qsq)
-        sim = jnp.where(denom > 0.0, dots / denom, 0.0)
-        return 1.0 - jnp.clip(sim, -1.0, 1.0)
-    if metric == "inner_product":
-        return -dots
-    if metric == "negative_inner_product":
-        return dots
-    sq = jnp.maximum(xsq - 2.0 * dots + qsq, 0.0)
-    return jnp.sqrt(sq) if metric == "l2" else sq
-
-
-def _stage_gmin_body(x_ref, xsq_ref, bias_ref, qt_ref, qsq_ref,
-                     gmin_ref, rank_ref, *, metric, fast):
-    dots = jnp.dot(x_ref[:], qt_ref[:], preferred_element_type=jnp.float32,
-                   precision=None if fast else jax.lax.Precision.HIGHEST,
-                   )  # [T, B]
-    rank = _stage_rank(dots, xsq_ref[:], qsq_ref[:], metric=metric)
-    # overflow posture as _gmin_body: no in-kernel finiteness pass — the
-    # wrapper's Cauchy-Schwarz norm bound proves every rank finite, and
-    # batches that fail the bound route to the host oracle via ok=False
-    # (dead slots are zeroed by the flat index, so invalid rows always rank
-    # finite and land on +inf via bias)
-    rank = rank + bias_ref[:]
-    t, b = rank.shape
-    gmin_ref[:] = jnp.min(rank.reshape(t // GROUP, GROUP, b), axis=1)
-    # the full rank tile leaves VMEM transposed to [B, T]: downstream
-    # element extraction gathers query-major rows, and emitting it here
-    # saves the separate [B, N]-rematerializing matmul AND its group-min
-    # re-read (the two passes that dominated the XLA stage-1)
-    rank_ref[:] = rank.T
-
-
-def _stage_gmin_scan(x, xsq, bias, q, *, metric, dims, row_tile):
-    """Group minima [B, N/GROUP] AND the full rank matrix [B, N] of the true
-    prefix metric, one fused pass. The x BlockSpec reads only the first
-    ``dims`` columns of the resident block — no [N, dims] prefix copy; the
-    rank matrix is written once (never re-read for the group minima)."""
-    n = x.shape[0]
-    b = q.shape[0]
-    fast = x.dtype == jnp.bfloat16
-    qp = q[:, :dims].astype(jnp.float32)
-    qsq = jnp.sum(qp * qp, axis=1)[None, :]  # [1, B]
-    # bf16 storage: the query transpose matches the block dtype (mixed-dtype
-    # MXU dots are a Mosaic hazard) and the matmul runs at native precision —
-    # the bf16-funnel/FDE posture (selection carries storage noise, winners
-    # rescore exactly downstream)
-    qt = (qp.astype(jnp.bfloat16) if fast else qp).T
-    xsq_max = jnp.max(xsq)
-    qlog = 0.5 * jnp.log(jnp.maximum(qsq, 1e-30))
-    xlog = 0.5 * jnp.log(jnp.maximum(xsq_max, 1e-30))
-    bounded = jnp.all(
-        (qsq < _SAFE_LIM) & (xsq_max < _SAFE_LIM) & (qlog + xlog < _SAFE_LOG))
-    tiles = n // row_tile
-    kernel = functools.partial(_stage_gmin_body, metric=metric, fast=fast)
-    gmin, rank = pl.pallas_call(
-        kernel,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((row_tile, dims), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((dims, b), lambda i: (0, 0)),
-            pl.BlockSpec((1, b), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((row_tile // GROUP, b), lambda i: (i, 0)),
-            pl.BlockSpec((b, row_tile), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n // GROUP, b), jnp.float32),
-            jax.ShapeDtypeStruct((b, n), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n * dims * b,
-            bytes_accessed=n * dims * x.dtype.itemsize + b * dims * 4
-            + n * b * 4 + n // GROUP * b * 4,
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() == "cpu",
-    )(x, xsq.reshape(-1, 1), bias.reshape(-1, 1), qt, qsq)
-    return gmin.T, rank, bounded
-
-
-@functools.partial(jax.jit, static_argnames=("metric", "count", "dims"))
-def fused_stage_candidates(x, xsq, bias, q, *, metric, count, dims):
-    """Exact top-``count`` candidate slots by the true prefix metric.
-
-    ``x`` [N, d] f32 or bf16 (lex-sorted cache block; bf16 selects at
-    storage precision — the flat bf16 posture), ``xsq`` [N] f32 PREFIX squared
-    norms (over the first ``dims`` columns), ``bias`` [N] f32 (0 valid /
-    +inf invalid), ``q`` [B, d] f32. Returns ``(slots [B, count] i32
-    best-first by (rank, slot), ranks [B, count] f32, ok [B])``; ok False =
-    overflow or a tie spill past the slack (host/XLA fallback).
-
-    Order-statistic exactness as fused_flat_search: the ``count`` smallest
-    group-mins are ``count`` distinct elements, so any group whose min
-    exceeds the count-th smallest group-min holds no top-count element
-    (spill past GROUP_SLACK flags ok False). Elements of the covered groups
-    are gathered from the kernel's own rank output — one fused pass computes
-    matmul, rank, group-min, and the rank matrix write.
-    """
-    n = x.shape[0]
-    b = q.shape[0]
-    xsq = xsq.reshape(-1)
-    bias = bias.reshape(-1)
-    row_tile = _pick_row_tile(n, dims, b, x.dtype.itemsize, tb_factor=3.5)
-    if row_tile is None:
-        raise ValueError("fused_stage_candidates: no VMEM-feasible row tile")
-    gmin, rank, all_finite = _stage_gmin_scan(x, xsq, bias, q, metric=metric,
-                                              dims=dims, row_tile=row_tile)
-    ng = n // GROUP
-    gsel = min(count + GROUP_SLACK, ng)
-    _gtop, gidx, spill_ok = select.group_topk(gmin, gsel, check_c=count)
-    # group_topk may return +inf-pad indices (>= ng) when a row has fewer
-    # than gsel finite groups — those rows flag spill_ok False and fall
-    # back, but the extraction kernel needs in-range indices
-    gidx = jnp.minimum(gidx, ng - 1)
-    pair = 2 * GROUP  # 128-lane extraction rows (lane-complete blocks)
-    if n % pair == 0:
-        # covered 64-slot group rows extract as HALF rows of the pair-layout
-        # (128-lane) view with the query's rank row VMEM-resident — XLA's
-        # row-gather costs ~55 ns/row against HBM-scale sources. Selection
-        # stays at 64-group granularity: pair-granularity selection doubles
-        # the downstream element width and loses more than extraction saves.
-        cand = extract_group_rows(
-            rank.reshape(b, n // pair, pair), gidx, half=True
-        ).reshape(b, gsel * GROUP)
-    else:
-        cand = jnp.take_along_axis(
-            rank.reshape(b, ng, GROUP), gidx[:, :, None], axis=1
-        ).reshape(b, gsel * GROUP)
-    cand_slots = (
-        gidx[:, :, None] * GROUP
-        + jnp.arange(GROUP, dtype=jnp.int32)[None, None, :]
-    ).reshape(b, gsel * GROUP)
-    slots, ranks, sel_ok = select.exact_top_c_slots(cand, cand_slots, c=count)
-    return slots, ranks, all_finite & spill_ok & sel_ok
-
-
-# ---------------------------------------------------------------------------
-# fused sign scan (quantized stage 1): int8 MXU hamming + group-min + i16
-# hamming-matrix write, one pass
-# ---------------------------------------------------------------------------
-
-_BIG16 = 32767
-
-
-def supports_sign_scan(cap: int, d: int, b: int) -> bool:
-    """Whether the fused sign scan handles this configuration (int8 block
-    tiling needs 128-lane-aligned d; the hamming write block is [B, tile])."""
-    return (
-        cap % GROUP == 0
-        and d % 128 == 0
-        and d < _BIG16 // 2
-        and _pick_row_tile(cap, d, b, 1, tb_factor=3.0) is not None
-    )
-
-
-def _sign_gmin_body(s_ref, valid_ref, qt_ref, gmin_ref, ham_ref, *, d):
-    dots = jnp.dot(s_ref[:], qt_ref[:], preferred_element_type=jnp.int32)  # [T, B]
-    ham = (d - dots) >> 1
-    ham = jnp.where(valid_ref[:] != 0, ham, _BIG16)
-    t, b = ham.shape
-    gmin_ref[:] = jnp.min(ham.reshape(t // GROUP, GROUP, b), axis=1)
-    # transposed i16 hamming matrix for the downstream element gather —
-    # written once from VMEM (the XLA formulation re-read its [B, N] dot
-    # output just to reduce it to group minima)
-    ham_ref[:] = ham.T.astype(jnp.int16)
-
-
-def fused_sign_scan(signs, valid8, qsigns, *, d, row_tile):
-    """One pass over the ±1 int8 block: ``(gmin [B, N/GROUP] i32,
-    ham16 [B, N] i16)`` — hamming = (d - s·q)/2 exactly (the packed
-    XOR+popcount value, distances.rs:426-437), invalid rows pinned to
-    ``_BIG16``."""
-    n = signs.shape[0]
-    b = qsigns.shape[0]
-    tiles = n // row_tile
-    kernel = functools.partial(_sign_gmin_body, d=d)
-    gmin, ham = pl.pallas_call(
-        kernel,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((row_tile, d), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((d, b), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((row_tile // GROUP, b), lambda i: (i, 0)),
-            pl.BlockSpec((b, row_tile), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n // GROUP, b), jnp.int32),
-            jax.ShapeDtypeStruct((b, n), jnp.int16),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n * d * b,
-            bytes_accessed=n * d + b * d + n * b * 2 + n // GROUP * b * 4,
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() == "cpu",
-    )(signs, valid8.reshape(-1, 1), qsigns.T)
-    return gmin.T, ham
-
-
-# ---------------------------------------------------------------------------
-# int8 scalar-quantized flat scan (FlatIndex.storage_view("int8")): per-row
-# symmetric quantization, int8 MXU pass-1, exact dequantized rescore of the
-# winners — the fastest storage mode (reads 0.77 GB/pass at 1M x 768)
-# ---------------------------------------------------------------------------
-
-
-def _int8_gmin_body(x_ref, scale_ref, xsq_ref, bias_ref, qt_ref, qscale_ref,
-                    qsq_ref, gmin_ref, *, metric):
-    dots = jnp.dot(x_ref[:], qt_ref[:],
-                   preferred_element_type=jnp.int32).astype(jnp.float32)
-    approx = dots * scale_ref[:] * qscale_ref[:]  # [T,B] * [T,1] * [1,B]
-    if metric in ("cosine", "inner_product", "negative_inner_product"):
-        rank = -approx
-    else:
-        # true f32 row norms keep the l2 expansion honest; only the cross
-        # term is quantized
-        rank = xsq_ref[:] - 2.0 * approx + qsq_ref[:]
-    # no in-kernel finiteness pass: |dots| <= d * 127^2 fits i32 exactly,
-    # and the wrapper's scale-product bound proves |approx| finite; batches
-    # with pathological dequant scales flag ok=False (host oracle) instead
-    rank = rank + bias_ref[:]
-    t, b = rank.shape
-    gmin_ref[:] = jnp.min(rank.reshape(t // GROUP, GROUP, b), axis=1)
-
-
-def _int8_gmin_scan(x8, scale, xsq, bias, q8t, qscale, qsq, *, metric, row_tile):
-    n, d = x8.shape
-    b = q8t.shape[1]
-    tiles = n // row_tile
-    # overflow-safety bound (see _gmin_scan): |approx| <= d*127^2 * scale *
-    # qscale exactly, so finite ranks are guaranteed when the dequant scale
-    # product and the norm terms sit under the per-term cap
-    amax = (jnp.float32(d * 127 * 127)
-            * jnp.max(scale) * jnp.max(jnp.abs(qscale)))
-    bounded = jnp.all(
-        (amax < _SAFE_LIM) & (jnp.max(xsq) < _SAFE_LIM) & (qsq < _SAFE_LIM))
-    kernel = functools.partial(_int8_gmin_body, metric=metric)
-    gmin = pl.pallas_call(
-        kernel,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((row_tile, d), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((d, b), lambda i: (0, 0)),
-            pl.BlockSpec((1, b), lambda i: (0, 0)),
-            pl.BlockSpec((1, b), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((row_tile // GROUP, b), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n // GROUP, b), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n * d * b,
-            bytes_accessed=n * d + b * d + n // GROUP * b * 4,
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() == "cpu",
-    )(x8, scale.reshape(-1, 1), xsq.reshape(-1, 1), bias.reshape(-1, 1),
-      q8t, qscale.reshape(1, -1), qsq.reshape(1, -1))
-    return gmin.T, bounded
-
-
-def _int8_rescore_body(gidx_ref, x_ref, scale_ref, xsq_ref, bias_ref, q_ref,
-                       out_ref, *, metric):
-    del gidx_ref
-    b = pl.program_id(0)
-    qm = q_ref[pl.ds(b, 1), :].astype(jnp.float32)  # [1, d] FULL f32 query
-    dots = jnp.sum(x_ref[:].astype(jnp.float32) * qm, axis=1,
-                   keepdims=True) * scale_ref[:]  # [GROUP, 1]
-    if metric in ("cosine", "inner_product", "negative_inner_product"):
-        rank = -dots
-    else:
-        qsq = jnp.sum(qm * qm)
-        rank = xsq_ref[:] - 2.0 * dots + qsq
-    rank = rank + bias_ref[:]
-    rank = jnp.where(jnp.isfinite(rank), rank, jnp.inf)
-    g = pl.program_id(1)
-    out_ref[0, pl.ds(g, 1), :] = rank.reshape(1, -1)
-
-
-def _int8_rescore(x8, scale, xsq, bias, q, gidx, *, metric):
-    b, gsel = gidx.shape
-    d = x8.shape[1]
-    kernel = functools.partial(_int8_rescore_body, metric=metric)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b, gsel),
-        in_specs=[
-            pl.BlockSpec((GROUP, d), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((GROUP, 1), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((GROUP, 1), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((GROUP, 1), lambda i, g, gidx: (gidx[i, g], 0)),
-            pl.BlockSpec((b, d), lambda i, g, gidx: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, gsel, GROUP), lambda i, g, gidx: (i, 0, 0)),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, gsel, GROUP), jnp.float32),
-        interpret=jax.default_backend() == "cpu",
-    )(gidx, x8, scale.reshape(-1, 1), xsq.reshape(-1, 1), bias.reshape(-1, 1),
-      q.astype(jnp.float32))
-
-
-@functools.partial(jax.jit, static_argnames=("metric", "k"))
-def fused_int8_search(x8, scale, xsq, bias, lex_rank, q, *, metric, k):
-    """Exact-ordering batched top-k over an int8-quantized block.
-
-    ``x8`` [N, d] int8 (per-row symmetric quantization), ``scale`` [N] f32
-    dequant factors, ``xsq`` [N] f32 TRUE f32 squared norms, ``bias``/
-    ``lex_rank``/``q`` as fused_flat_search. Selection ranks are the
-    quantized metric (candidates are approximate, like bf16 storage but
-    coarser); the returned raw values come from dequantized rows at HIGHEST
-    precision. ok False = tie spill past the slack, or dequant scales so
-    extreme the approx rank could overflow f32 (host-oracle route).
-    """
-    n, d = x8.shape
-    b = q.shape[0]
-    scale = scale.reshape(-1)
-    xsq = xsq.reshape(-1)
-    bias = bias.reshape(-1)
-    row_tile = _pick_row_tile(n, d, b, 1)
-    if row_tile is None:
-        raise ValueError("fused_int8_search: no VMEM-feasible row tile")
-    qf = q.astype(jnp.float32)
-    qmax = jnp.maximum(jnp.max(jnp.abs(qf), axis=1), 1e-30)
-    qscale = qmax / 127.0  # [B]
-    q8 = jnp.clip(jnp.round(qf / qscale[:, None]), -127, 127).astype(jnp.int8)
-    qsq = jnp.sum(qf * qf, axis=1)  # [B]
-    gmin, bounded = _int8_gmin_scan(x8, scale, xsq, bias, q8.T, qscale, qsq,
-                                    metric=metric, row_tile=row_tile)
-    ng = n // GROUP
-    gsel = min(k + GROUP_SLACK, ng)
-    gtop, gidx, g_ok = select.group_topk(gmin, gsel, check_c=k)
-    spill_ok = jnp.all(g_ok)
-
-    cand = _int8_rescore(x8, scale, xsq, bias, qf, gidx,
-                         metric=metric).reshape(b, gsel * GROUP)
-    cand_slots = (
-        gidx[:, :, None] * GROUP
-        + jnp.arange(GROUP, dtype=jnp.int32)[None, None, :]
-    ).reshape(b, gsel * GROUP)
-
-    sel = min(k + TIE_PAD, gsel * GROUP)
-    neg_sel, pos = jax.lax.top_k(-cand, sel)
-    sel_rank = -neg_sel
-    sel_slots = jnp.take_along_axis(cand_slots, pos, axis=1)
-    sel_lex = jnp.where(jnp.isfinite(sel_rank), lex_rank[sel_slots], _BIG32)
-    rank_s, _, slot_s = jax.lax.sort(
-        (sel_rank, sel_lex, sel_slots), num_keys=2, dimension=1)
-    tie_ok = jnp.all(
-        jnp.logical_or(rank_s[:, k - 1] < sel_rank[:, sel - 1],
-                       jnp.logical_not(jnp.isfinite(sel_rank[:, sel - 1]))))
-    top_slot = slot_s[:, :k]
-    top_rank = rank_s[:, :k]
-    # dequantized winners at HIGHEST precision (raw quality = int8 storage
-    # noise, same posture as the bf16 view's approximate raws)
-    rows = x8[top_slot].astype(jnp.float32) * scale[top_slot][:, :, None]
-    if metric in ("l2", "l2_squared"):
-        diff = rows - qf[:, None, :]
-        sq = jnp.sum(diff * diff, axis=-1)
-        raw = jnp.sqrt(sq) if metric == "l2" else sq
-        top_rank = jnp.where(jnp.isfinite(top_rank), raw, jnp.inf)
-    else:
-        rdots = jnp.einsum(
-            "bkd,bd->bk", rows, qf,
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)
-        raw = -rdots if metric == "negative_inner_product" else rdots
-        if metric == "cosine":
-            top_rank = jnp.where(jnp.isfinite(top_rank), 1.0 - raw, jnp.inf)
-    return top_slot, raw, top_rank, bounded & spill_ok & tie_ok
-
-
-# ---------------------------------------------------------------------------
-# covered-row extraction: per-query gather of selected 128-lane rows with the
-# source row resident in VMEM (XLA's row-gather costs ~55 ns/row against
-# HBM-scale sources — 14.3 ms for 512 x 508 rows of a 1 GB matrix; streaming
-# each query's full row through VMEM and extracting with sublane dynamic
-# slices runs at the HBM sweep rate instead)
-# ---------------------------------------------------------------------------
-
-#: VMEM ceiling for the extraction kernel's double-buffered source row
-_EXTRACT_VMEM = 12 * 2**20
-
-
-def supports_extract(rows: int, lanes: int, itemsize: int) -> bool:
-    """Whether the Pallas row extraction handles a [B, rows, lanes] source
-    (lane-complete last dim; 8-sublane-aligned loads need rows % 8;
-    double-buffered source row must fit VMEM)."""
-    return (
-        lanes % 128 == 0
-        and rows % 8 == 0
-        and 2 * rows * lanes * itemsize <= _EXTRACT_VMEM
-    )
-
-
-def _extract_body(gidx_ref, mat_ref, out_ref, *, gsel, half):
-    # Mosaic requires dynamic sublane indices provably 8-aligned: each
-    # iteration loads the aligned 8-row window holding the target row,
-    # rotates the target into place (tpu.dynamic_rotate takes traced
-    # shifts), merges 8 targets in registers, and stores one aligned
-    # 8-row output window. In ``half`` mode indices address 64-element
-    # half rows: the odd half reaches lanes 0..63 via a STATIC 64-lane
-    # rotate (dynamic lane indexing is not expressible).
-    lanes = mat_ref.shape[2]
-    out_lanes = out_ref.shape[2]
-    idx8 = jax.lax.broadcasted_iota(jnp.int32, (8, out_lanes), 0)
-
-    # tpu.dynamic_rotate only handles 32-bit lanes: narrow dtypes widen per
-    # 8-row window (VPU noise next to the DMA) and narrow back at the store
-    narrow = out_ref.dtype.itemsize < 4
-    wide = jnp.int32 if jnp.issubdtype(out_ref.dtype, jnp.integer) else jnp.float32
-
-    def step(c8, carry):
-        base = c8 * 8
-        acc = jnp.zeros((8, out_lanes), wide if narrow else out_ref.dtype)
-        for j in range(8):
-            g = gidx_ref[0, 0, base + j]
-            row = g >> 1 if half else g
-            v = mat_ref[0, pl.ds((row // 8) * 8, 8), :]  # aligned [8, lanes]
-            if narrow:
-                v = v.astype(wide)
-            r = pltpu.roll(v, (j + 8 - row % 8) % 8, 0)  # row row%8 -> row j
-            if half:
-                r = jnp.where((g & 1) == 1, pltpu.roll(r, lanes - 64, 1), r)
-                r = r[:, :64]
-            acc = jnp.where(idx8 == j, r, acc)
-        out_ref[0, pl.ds(base, 8), :] = acc.astype(out_ref.dtype)
-        return carry
-
-    jax.lax.fori_loop(0, gsel // 8, step, 0)
-
-
-def extract_group_rows(mat, gidx, *, half=False):
-    """``mat`` [B, R, L] (L a lane-tile multiple), ``gidx`` [B, C] int32 row
-    ids in [0, R). Returns ``[B, C, L]`` — ``out[b, c] = mat[b, gidx[b, c]]``.
-    With ``half=True``, ``gidx`` addresses 64-element HALF rows (virtual row
-    g = row g>>1, half g&1; L must be 128) and the result is [B, C, 64] —
-    how the 64-slot group-cover selections extract from pair-layout blocks
-    without doubling their downstream selection width.
-
-    Grid over queries: each step DMA-streams the query's full [R, L] row
-    block into VMEM once and copies the C selected rows out with sublane
-    dynamic slices — no per-row HBM gather (XLA's costs ~55 ns/row against
-    HBM-scale sources: 14.3 ms for 512 x 508 rows of a 1 GB matrix; this
-    kernel measures 6.9 ms). Callers pre-clamp pad indices (selection masks
-    their values afterwards). Falls back to ``take_along_axis`` when the
-    source row exceeds the VMEM budget."""
-    b, rows, lanes = mat.shape
-    c = gidx.shape[1]
-    if (half and lanes != 128) or not supports_extract(
-            rows, lanes, mat.dtype.itemsize):
-        if half:
-            hview = mat.reshape(b, 2 * rows, lanes // 2)
-            return jnp.take_along_axis(hview, gidx[:, :, None], axis=1)
-        return jnp.take_along_axis(mat, gidx[:, :, None], axis=1)
-    gsel = -(-c // 8) * 8  # 8-row output windows
-    if gsel != c:
-        gidx = jnp.pad(gidx, ((0, 0), (0, gsel - c)))
-    # the index rows ride per-step SMEM blocks (a whole [B, C] i32 matrix
-    # as a prefetched scalar operand overflows the 1 MB SMEM at B = 512);
-    # the singleton middle dim satisfies the (8, 128)-or-full block rule
-    out_lanes = 64 if half else lanes
-    out = pl.pallas_call(
-        functools.partial(_extract_body, gsel=gsel, half=half),
-        grid=(b,),
-        in_specs=[
-            pl.BlockSpec((1, 1, gsel), lambda i: (i, 0, 0),
-                         memory_space=pltpu.MemorySpace.SMEM),
-            pl.BlockSpec((1, rows, lanes), lambda i: (i, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, gsel, out_lanes), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((b, gsel, out_lanes), mat.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=0,
-            bytes_accessed=(b * rows * lanes + 2 * b * gsel * out_lanes)
-            * mat.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() == "cpu",
-    )(gidx.reshape(b, 1, gsel), mat)
-    return out[:, :c, :] if gsel != c else out
-
-
 def _fused_xla_search(x, xsq, bias, lex_rank, q, *, metric, k):
-    """XLA fallback: one whole-block matmul + group-min selection with the
+    """XLA pass 1: one whole-block matmul + group-min selection with the
     full-candidate (rank, lex) sort. Exact for arbitrary tie depths (no tie
-    pad), at the cost of materializing the [B, N] rank matrix in HBM."""
+    pad), at the cost of materializing the [B, N] rank matrix in device
+    memory."""
     n, d = x.shape
     b = q.shape[0]
     fast = x.dtype == jnp.bfloat16

@@ -1,27 +1,25 @@
 """IVF (inverted-file) device ops: k-means routing + block-gather rescore.
 
-A TPU-native ANN design with no counterpart in the reference (the reference's
-only sub-linear index is the pointer-chasing HNSW graph, hnsw.rs:292-333;
-this index serves the same role — approximate search far below the exact-scan
-cost — with a layout that maps to the hardware instead of against it):
+An accelerator ANN design with no counterpart in the reference (the
+reference's only sub-linear index is the pointer-chasing HNSW graph,
+hnsw.rs:292-333; this index serves the same role — approximate search far
+below the exact-scan cost — with a layout of dense matmuls and contiguous
+reads instead of pointer chasing):
 
 * **build**: k-means over the corpus (assignment = one chunked matmul +
-  argmax per iteration on the MXU, update = segment-sum), then rows are
-  REORDERED cluster-major and chopped into contiguous ``GROUP``-row blocks.
-  A 1M x 768 build takes seconds — vs minutes for graph construction —
-  because every step is a dense batched matmul.
+  argmax per iteration, update = segment-sum), then rows are REORDERED
+  cluster-major and chopped into contiguous ``GROUP``-row blocks. Every
+  build step is a dense batched matmul, no graph construction.
 * **search**: queries rank *block centroids* with one small matmul
   ([B, d] x [d, N/64] — ~0.1% of the full-scan FLOPs), probe the best
-  ``n_probe`` blocks, and rescore only those rows through the
-  scalar-prefetch Pallas block streamer (ops/flat_scan._rescore): HBM
-  traffic is ``n_probe * GROUP`` rows per query instead of N. The winners
-  re-score at HIGHEST precision exactly like the flat scans.
+  ``n_probe`` blocks, and rescore only those rows through the flat scan's
+  group rescore (ops/flat_scan._rescore): device-memory traffic is
+  ``n_probe * GROUP`` rows per query instead of N. The winners re-score at
+  HIGHEST precision exactly like the flat scans.
 
-Contiguous 64-row blocks are the whole trick: XLA row-gathers of scattered
-rows cost ~55 ns/row against HBM-sized sources, but a block chosen by a
-prefetched scalar index streams at the sweep rate (see
-flat_scan.extract_group_rows notes). The cluster-major permutation makes the
-candidate set *contiguous by construction*.
+Contiguous 64-row blocks are the whole trick: the cluster-major permutation
+makes each probed candidate set a few contiguous row blocks by
+construction, not scattered single rows.
 
 Approximation contract matches HNSW (recall measured against the exact scan,
 no exactness flag); with ``n_probe >= n_blocks`` every row is rescored and
@@ -55,6 +53,7 @@ def _assign_chunk(xc, cent_t, csq, *, spherical):
     """Nearest-centroid assignment for one row chunk. ``cent_t`` [d, C]
     storage-cast centroids, ``csq`` [C] squared norms. Spherical (cosine/IP)
     routes by max dot; otherwise by min L2 via the norm expansion."""
+    # selection-only (routing): bf16 operands, f32 accumulation
     dots = jnp.dot(xc.astype(cent_t.dtype), cent_t,
                    preferred_element_type=jnp.float32)  # [T, C]
     if spherical:
@@ -80,9 +79,9 @@ def kmeans_assign(x, valid, *, n_cent: int, iters: int, metric: str,
     to sentinel cluster ``n_cent`` so the cluster-major sort packs them into
     trailing blocks (which carry +inf block bias and never win a probe).
 
-    Assignment is chunked matmul+argmax (MXU), update is one segment-sum —
-    a 1M x 768 iteration measures ~0.3 s on a v5e. Centroids route in
-    bfloat16 (routing is approximate by design; the rescore is full width).
+    Assignment is chunked matmul+argmax, update is one segment-sum.
+    Centroids route in bfloat16 (routing is approximate by design; the
+    rescore is full width).
     """
     n, _d = x.shape
     spherical = metric in ("cosine", "inner_product", "negative_inner_product")
@@ -154,6 +153,7 @@ def ivf_search(xb, xsq, bias, lex_rank, bcb, csq, block_bias, q, *,
     ng = n // GROUP
     p = min(nprobe, ng)
     qf = q.astype(jnp.float32)
+    # selection-only (block routing): bf16 operands, f32 accumulation
     dots = jnp.dot(qf.astype(jnp.bfloat16), bcb.T,
                    preferred_element_type=jnp.float32)  # [B, NG]
     if metric in ("cosine", "inner_product"):

@@ -6,9 +6,9 @@ sum. Empty query or document side scores 0.0 but the non-empty side is still
 validated (multi_vector.rs:44-60,101-111).
 
 The device path (`batched_maxsim_scores`) scores a padded ``[D, T, d]`` token
-block against ``[Q, d]`` queries in one MXU einsum — the TPU-native
-replacement for the nested Rust loops — and is used by the collection's
-multi-vector search and hybrid rerank.
+block against ``[Q, d]`` queries in one einsum — the accelerator replacement
+for the nested Rust loops — and is used by the collection's multi-vector
+search and hybrid rerank.
 """
 
 from __future__ import annotations
@@ -23,22 +23,6 @@ import numpy as np
 from ..errors import DimensionMismatch, InvalidVector, ScoreOverflow
 from ..metrics import similarity_value, validate_metric
 from .distance import _check_f32, _raw_f64, validate_vector
-
-
-@jax.jit
-def _row_sq_sums(x2):
-    """Per-row squared norms in f32 WITHOUT materializing a full-width cast
-    of the block (16.4 GB at 1M x 32 x 128 token rows): a chunked
-    cast+square+reduce that XLA fuses per chunk."""
-    nt, d = x2.shape
-    ck = 1
-    while ck < 65_536 and nt % (ck * 2) == 0:
-        ck *= 2
-    if nt // ck <= 1 or ck < 1024:
-        return jnp.sum(x2.astype(jnp.float32) ** 2, axis=1)
-    return jax.lax.map(
-        lambda c: jnp.sum(c.astype(jnp.float32) ** 2, axis=1),
-        x2.reshape(nt // ck, ck, d)).reshape(nt)
 
 
 def _validate_matrix(vectors, dimension=None):
@@ -199,9 +183,9 @@ def batched_maxsim_scores(tokens, token_counts, queries, *, metric: str):
 # ---------------------------------------------------------------------------
 # Batched per-query token sets: full-corpus chunked scan + candidate-subset
 # rerank. These are the serving-path kernels: one dispatch scores a whole
-# [B, Qt, d] batch of query token sets, token blocks stream through VMEM in
-# doc chunks so corpora larger than any single intermediate fit in HBM
-# (the [D, Q, T] sim tensor of the single-shot kernel is the limit there).
+# [B, Qt, d] batch of query token sets, token blocks stream in doc chunks so
+# corpora larger than any single intermediate fit in device memory (the
+# [D, Q, T] sim tensor of the single-shot kernel is the limit there).
 # ---------------------------------------------------------------------------
 
 
@@ -350,328 +334,6 @@ def maxsim_full_topk_batch(tokens, token_counts, valid, qtok, qmask, *,
             body, init, jnp.arange(nch, dtype=jnp.int32))
     k_slots = jnp.where(k_scores > -jnp.inf, k_slots, -1)
     return k_slots, k_scores, ok
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas full-corpus scan: dots on the MXU, max-over-T and sum-over-Q
-# in VMEM, ONE [B, N] rank write — no [chunk, B, Q, T] sim intermediate.
-# The XLA chunked scan above reads+writes ~65 GB of sim blocks per 1M x 32 x
-# 128 batch (measured ~48 GB/s effective, 158 ms); this kernel's traffic is
-# the 7.6 GiB token block + 0.25 GB of ranks (bandwidth-bound ceiling ~26 ms).
-# Selection reuses the flat scan's group-cover machinery and the winners
-# rerank at HIGHEST precision through maxsim_subset_topk_batch, so returned
-# scores match the XLA path's storage-exact values; only the CANDIDATE
-# selection carries bf16 noise (the flat bf16 posture).
-# ---------------------------------------------------------------------------
-
-from jax.experimental import pallas as pl  # noqa: E402
-
-#: VMEM budget for the fused scan tile (the [RT, BQ] dots block dominates;
-#: the estimate counts dots + one fused temporary, so leave Mosaic headroom)
-_MV_VMEM = 11 * 2**20
-
-FUSED_MV_METRICS = ("cosine", "inner_product", "negative_inner_product")
-
-
-def _mv_row_tile(t: int, d: int, bq: int, itemsize: int, nt: int):
-    """Largest token-row tile fitting VMEM: double-buffered x tile + f32
-    dots/sim blocks + per-doc epilogue. The doc count per tile is the rank
-    output's LANE dimension, so it must be a 128 multiple (Mosaic block
-    rule); 256 first when it fits. (The uniform variant's in-kernel norm
-    temp is a ~2-4 MB fused elementwise chain — inside the budget's slack
-    against the 128 MB physical VMEM.)"""
-    for docs in (256, 128):
-        rt = docs * t
-        if nt % rt:
-            continue
-        est = 2 * rt * d * itemsize + 2 * rt * bq * 4 + d * bq * itemsize
-        if est <= _MV_VMEM:
-            return rt
-    return None
-
-
-#: per-token-row mask/norm operands are [NT, 1] f32, which the TPU memory
-#: layout pads 128x in HBM (measured: 15.15 GiB EACH at 1M x 32 tokens) —
-#: the masked (non-uniform) fused variant is only feasible below this
-#: token-row count; uniform corpora use the operand-free kernel at any size
-_FUSED_MASKED_ROWS_MAX = 4_194_304
-
-
-def supports_fused(metric: str, cap: int, t: int, d: int, bq: int,
-                   itemsize: int, uniform: bool = False) -> bool:
-    """Whether the fused MaxSim scan serves this configuration (dot-family
-    metrics; lane-aligned d; T a power of two via the cache's padding; tile
-    divisibility; 64-doc group alignment for the cover selection).
-    ``uniform`` = every live doc stores exactly ``t`` tokens — required at
-    large ``cap * t`` (see ``_FUSED_MASKED_ROWS_MAX``)."""
-    return (
-        metric in FUSED_MV_METRICS
-        and d % 128 == 0
-        and t >= 1 and (t & (t - 1)) == 0
-        and cap % 128 == 0
-        and (uniform or cap * t <= _FUSED_MASKED_ROWS_MAX)
-        and _mv_row_tile(t, d, bq, itemsize, cap * t) is not None
-    )
-
-
-def _mv_scan_body(x_ref, tinv_ref, tbias_ref, dzero_ref, dbias_ref, qt_ref,
-                  qinv_ref, rank_ref, *, t, b, metric, fast):
-    dots = jnp.dot(x_ref[:], qt_ref[:],
-                   preferred_element_type=jnp.float32,
-                   precision=None if fast else jax.lax.Precision.HIGHEST,
-                   )  # [RT, BQ]
-    if metric == "cosine":
-        sim = dots * tinv_ref[:] * qinv_ref[:]
-        sim = jnp.clip(sim, -1.0, 1.0)
-    else:
-        # inner_product and negative_inner_product: similarity IS the dot
-        # (similarity_value(nip, -dot) = dot), multi_vector.rs:44-87
-        sim = dots
-    sim = sim + tbias_ref[:]  # -BIG on pad token rows
-    rt, bq = sim.shape
-    dt = rt // t
-    best = jnp.max(sim.reshape(dt, t, bq), axis=1)  # [DT, BQ]
-    qt_per = bq // b
-    if qt_per == 1:
-        totals = best
-    else:
-        # Splitting the LANE dim (BQ -> [B, QT]) is an unsupported Mosaic
-        # shape cast for b < 128 (the sublane split above is fine); sum the
-        # qt token columns of each query with a tiny exact 0/1 matmul
-        # instead (columns are b-major: column i*qt+j belongs to query i).
-        # HIGHEST keeps the f32 values exact through the MXU's bf16 passes.
-        col = jax.lax.broadcasted_iota(jnp.int32, (bq, b), 0) // qt_per
-        sel = col == jax.lax.broadcasted_iota(jnp.int32, (bq, b), 1)
-        totals = jnp.dot(best, sel.astype(jnp.float32),
-                         preferred_element_type=jnp.float32,
-                         precision=jax.lax.Precision.HIGHEST)  # [DT, B]
-    # zero-token docs score 0.0 (multi_vector.rs:44-60); dead slots +inf out
-    rank = jnp.where(dzero_ref[:] > 0.0, 0.0, -totals) + dbias_ref[:]
-    rank_ref[:] = rank.T  # [B, DT]
-
-
-def _mv_scan_body_u(x_ref, dzero_ref, dbias_ref, qt_ref, qinv_ref, rank_ref,
-                    *, t, b, metric, fast):
-    """Uniform-token variant of :func:`_mv_scan_body`: every live doc has
-    exactly ``t`` real tokens, so the per-token pad bias vanishes and the
-    inverse token norms compute IN-KERNEL from the x tile — no ``[NT, 1]``
-    operands at all (their 128x HBM lane padding is 15 GiB each at 1M x 32).
-    Per-doc vectors arrive as 1-D lane-aligned blocks and apply after the
-    transpose."""
-    dots = jnp.dot(x_ref[:], qt_ref[:],
-                   preferred_element_type=jnp.float32,
-                   precision=None if fast else jax.lax.Precision.HIGHEST,
-                   )  # [RT, BQ]
-    if metric == "cosine":
-        xf = x_ref[:].astype(jnp.float32)
-        xsq = jnp.sum(xf * xf, axis=1, keepdims=True)  # [RT, 1]
-        tinv = jnp.where(xsq > 0.0, 1.0 / jnp.sqrt(xsq), 0.0)
-        sim = jnp.clip(dots * tinv * qinv_ref[:], -1.0, 1.0)
-    else:
-        sim = dots
-    rt, bq = sim.shape
-    dt = rt // t
-    best = jnp.max(sim.reshape(dt, t, bq), axis=1)  # [DT, BQ]
-    qt_per = bq // b
-    if qt_per == 1:
-        totals = best
-    else:
-        col = jax.lax.broadcasted_iota(jnp.int32, (bq, b), 0) // qt_per
-        sel = col == jax.lax.broadcasted_iota(jnp.int32, (bq, b), 1)
-        totals = jnp.dot(best, sel.astype(jnp.float32),
-                         preferred_element_type=jnp.float32,
-                         precision=jax.lax.Precision.HIGHEST)  # [DT, B]
-    totals_t = totals.T  # [B, DT]
-    dz = dzero_ref[:]  # [1, DT] row vectors, broadcast over B
-    db = dbias_ref[:]
-    rank_ref[:] = jnp.where(dz > 0.0, 0.0, -totals_t) + db
-
-
-def fused_maxsim_rank_scan_uniform(x2, dzero1, dbias1, qt, qinv, *,
-                                   t: int, b: int, metric: str, row_tile: int):
-    """Uniform-token rank scan: ``dzero1``/``dbias1`` are [1, N] f32 row
-    vectors (standard 2-D tiling — a [N, 1] layout pads 128x in HBM and a
-    1-D [N] operand's T(1024) XLA tiling is not Mosaic-consumable). Same
-    contract as :func:`fused_maxsim_rank_scan`."""
-    nt, d = x2.shape
-    bq = qt.shape[1]
-    n = nt // t
-    if row_tile is None or nt % row_tile:
-        raise ValueError("fused_maxsim_rank_scan: no VMEM-feasible row tile")
-    tiles = nt // row_tile
-    docs_tile = row_tile // t
-    kernel = functools.partial(_mv_scan_body_u, t=t, b=b, metric=metric,
-                               fast=x2.dtype == jnp.bfloat16)
-    return pl.pallas_call(
-        kernel,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((row_tile, d), lambda i: (i, 0)),
-            pl.BlockSpec((1, docs_tile), lambda i: (0, i)),
-            pl.BlockSpec((1, docs_tile), lambda i: (0, i)),
-            pl.BlockSpec((d, bq), lambda i: (0, 0)),
-            pl.BlockSpec((1, bq), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((b, docs_tile), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((b, n), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nt * d * bq,
-            bytes_accessed=nt * d * x2.dtype.itemsize + d * bq * 4 + n * b * 4,
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() == "cpu",
-    )(x2, dzero1.reshape(1, n), dbias1.reshape(1, n), qt, qinv)
-
-
-def fused_maxsim_rank_scan(x2, tinv, tbias, dzero, dbias, qt, qinv, *,
-                           t: int, b: int, metric: str, row_tile: int):
-    """One fused pass over the flattened ``[N*T, d]`` token block: returns
-    the ``[B, N]`` MaxSim rank matrix (rank = -score, +inf on dead docs,
-    exactly 0 on zero-token docs).
-
-    ``x2`` [NT, d] storage dtype, ``tinv`` [NT, 1] f32 inverse token norms
-    (cosine; ones otherwise), ``tbias`` [NT, 1] f32 (0 real / -BIG pad),
-    ``dzero`` [N, 1] f32 (1 = zero-token doc), ``dbias`` [N, 1] f32 (+inf =
-    dead slot), ``qt`` [d, B*Q] storage dtype (b-major columns; pad query
-    tokens are zero rows, which contribute exactly 0 to every doc's total),
-    ``qinv`` [1, B*Q] f32 inverse query-token norms (cosine; ones otherwise).
-    """
-    nt, d = x2.shape
-    bq = qt.shape[1]
-    n = nt // t
-    if row_tile is None or nt % row_tile:
-        raise ValueError("fused_maxsim_rank_scan: no VMEM-feasible row tile")
-    tiles = nt // row_tile
-    docs_tile = row_tile // t
-    kernel = functools.partial(_mv_scan_body, t=t, b=b, metric=metric,
-                               fast=x2.dtype == jnp.bfloat16)
-    rank = pl.pallas_call(
-        kernel,
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((row_tile, d), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((row_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((docs_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((docs_tile, 1), lambda i: (i, 0)),
-            pl.BlockSpec((d, bq), lambda i: (0, 0)),
-            pl.BlockSpec((1, bq), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((b, docs_tile), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((b, n), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nt * d * bq,
-            bytes_accessed=nt * d * x2.dtype.itemsize + d * bq * 4 + n * b * 4,
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() == "cpu",
-    )(x2, tinv, tbias, dzero, dbias, qt, qinv)
-    return rank
-
-
-#: pad-token sim sentinel: far below any real similarity but finite, so a
-#: max over an all-pad doc stays representable (the dzero select zeroes it)
-_PAD_SIM = -3.0e38
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("metric", "limit", "t", "b", "uniform"))
-def fused_maxsim_topk_batch(tokens, token_counts, valid, qtok, qmask, *,
-                            metric: str, limit: int, t: int, b: int,
-                            uniform: bool = False):
-    """Fused full-corpus MaxSim top-k: Pallas rank scan + group-cover
-    candidate selection + HIGHEST-precision subset rerank of the winners.
-
-    Same contract as :func:`maxsim_full_topk_batch` (slots in cache-lex
-    order, (score desc, slot asc) ties, ``ok`` per query). Candidate
-    selection ranks with the storage dtype (bf16 blocks select with bf16
-    dots — the flat bf16 posture); the returned scores are re-scored at
-    HIGHEST from the gathered winners, so values match the XLA path.
-
-    ``uniform=True`` asserts every live doc stores exactly ``t`` real
-    tokens: the scan then runs the operand-free kernel (norms in-kernel, no
-    per-token-row mask arrays) — mandatory at 1M-doc scale, where the
-    masked variant's [NT, 1] operands pad 128x in HBM (15 GiB each).
-    """
-    from . import select as select_ops
-    from .flat_scan import GROUP, extract_group_rows
-
-    cap, t_dim, d = tokens.shape
-    assert t_dim == t
-    bsz, qmax = qtok.shape[0], qtok.shape[1]
-    assert bsz == b
-    nt = cap * t
-    x2 = tokens.reshape(nt, d)
-    row_tile = _mv_row_tile(t, d, b * qmax, tokens.dtype.itemsize, nt)
-
-    if metric == "cosine":
-        qn = jnp.sqrt(jnp.sum(qtok.astype(jnp.float32) ** 2, axis=2))  # [B, Q]
-        qinv = jnp.where(qn > 0.0, 1.0 / jnp.maximum(qn, 1e-38), 0.0)
-        bound_ok = jnp.bool_(True)  # |cosine| <= 1 by construction
-    else:
-        qinv = jnp.ones((b, qmax), jnp.float32)
-        # overflow posture (flat_scan._gmin_scan): prove every |dot| and
-        # every total finite via norm products, else route to the oracle
-        # (tsq via the chunked reduce — an eager full-width f32 cast of the
-        # block would be 16.4 GB at 1M x 32 x 128)
-        tmax = jnp.max(_row_sq_sums(x2))
-        qsqm = jnp.max(jnp.sum(qtok.astype(jnp.float32) ** 2, axis=2))
-        bound_ok = (jnp.sqrt(tmax) * jnp.sqrt(qsqm) * qmax) < 3.0e37
-    dzero = (token_counts <= 0).astype(jnp.float32)
-    dbias = jnp.where(valid, 0.0, jnp.inf).astype(jnp.float32)
-    qt = qtok.reshape(b * qmax, d).T.astype(x2.dtype)  # b-major columns
-
-    if uniform:
-        rank = fused_maxsim_rank_scan_uniform(
-            x2, dzero, dbias, qt, qinv.reshape(1, -1),
-            t=t, b=b, metric=metric, row_tile=row_tile)
-    else:
-        tsq = _row_sq_sums(x2)
-        token_live = (
-            jnp.arange(t, dtype=jnp.int32)[None, :] < token_counts[:, None]
-        ).reshape(nt)
-        tbias = jnp.where(token_live, 0.0, _PAD_SIM).astype(jnp.float32)
-        if metric == "cosine":
-            tn = jnp.sqrt(tsq)
-            tinv = jnp.where(tn > 0.0, 1.0 / jnp.maximum(tn, 1e-38), 0.0)
-        else:
-            tinv = jnp.ones(nt, jnp.float32)
-        rank = fused_maxsim_rank_scan(
-            x2, tinv.reshape(-1, 1), tbias.reshape(-1, 1),
-            dzero.reshape(-1, 1), dbias.reshape(-1, 1), qt,
-            qinv.reshape(1, -1), t=t, b=b, metric=metric, row_tile=row_tile)
-
-    # group-cover selection (flat_scan discipline): C candidates for the
-    # HIGHEST rerank, then the exact top-limit comes from re-scored values
-    c = min(max(2 * limit, 64), cap)
-    ng = cap // GROUP
-    gmin = jnp.min(rank.reshape(b, ng, GROUP), axis=2)
-    gsel = min(c + select_ops.SLACK, ng)
-    _gv, gidx, g_ok = select_ops.group_topk(gmin, gsel, check_c=c)
-    gidx = jnp.minimum(gidx, ng - 1)
-    pair = 2 * GROUP
-    if cap % pair == 0:
-        cand = extract_group_rows(
-            rank.reshape(b, cap // pair, pair), gidx, half=True
-        ).reshape(b, gsel * GROUP)
-    else:
-        cand = jnp.take_along_axis(
-            rank.reshape(b, ng, GROUP), gidx[:, :, None], axis=1
-        ).reshape(b, gsel * GROUP)
-    cand_slots = (
-        gidx[:, :, None] * GROUP
-        + jnp.arange(GROUP, dtype=jnp.int32)[None, None, :]
-    ).reshape(b, gsel * GROUP)
-    slots, ranks, sel_ok = select_ops.exact_top_c_slots(cand, cand_slots, c=c)
-
-    # HIGHEST-precision rerank of the C winners (exact storage-dtype scores,
-    # (score desc, slot asc) order) — maxsim_subset_topk_batch contract
-    slot_ok = jnp.isfinite(ranks) & (slots >= 0)
-    top_slots, scores, sub_ok = maxsim_subset_topk_batch(
-        tokens, token_counts, jnp.maximum(slots, 0), slot_ok, qtok, qmask,
-        metric=metric, limit=limit)
-    ok = sel_ok & g_ok & sub_ok & bound_ok
-    return top_slots, scores, ok
 
 
 @functools.partial(jax.jit, static_argnames=("metric", "limit"))

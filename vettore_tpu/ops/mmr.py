@@ -125,7 +125,7 @@ def mmr_rerank(initial, embeddings, metric, alpha, final_k) -> list:
 
 # ---------------------------------------------------------------------------
 # Device batched MMR (the serving path): the O(k²·d) pairwise-similarity
-# matrix is one MXU matmul per query batch; the greedy selection runs as a
+# matrix is one matmul per query batch; the greedy selection runs as a
 # [B]-vectorized fori_loop over final_k steps. Same ordering rules as the
 # host reference loop above (earliest remaining candidate wins ties, f32
 # arithmetic instead of f64 pair scoring).

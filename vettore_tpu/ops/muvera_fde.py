@@ -1,9 +1,9 @@
 """Device-side MUVERA FDE block: the candidate generator for fast
 multi-vector (ColBERT MaxSim) search.
 
-The exact full-corpus MaxSim scan is MXU-bound — at 1M x 32 x 128 tokens,
-batch 64 x 32 query tokens, the dots alone are ~17 TFLOP/batch (~85 ms
-floor on one v5e). MUVERA (muvera.rs:26-74) compresses every token set to
+The exact full-corpus MaxSim scan is compute-bound — at 1M x 32 x 128
+tokens, batch 64 x 32 query tokens, the dots alone are ~17 TFLOP/batch.
+MUVERA (muvera.rs:26-74) compresses every token set to
 ONE fixed-dimensional vector whose inner product approximates the chamfer
 similarity, so candidate generation becomes a single [B, fde] x [fde, N]
 matmul + top-C selection — two orders of magnitude fewer FLOPs — followed
@@ -42,9 +42,6 @@ FDE_METRICS = ("cosine", "inner_product", "negative_inner_product")
 #: and [chunk, T, pd] projection intermediates to a few hundred MB)
 _ENC_CHUNK = 65_536
 
-#: row-tile divisor of every cache capacity (collection._cap_at_least)
-_CAP_TILE = 1024
-
 
 def default_config(dims: int) -> dict:
     """Internal-generator default: 16 SimHash partitions x 8 repetitions,
@@ -78,8 +75,8 @@ def fde_width(cfg: dict) -> int:
 
 
 def padded_width(cfg: dict) -> int:
-    """FDE width padded to a lane tile — zero columns leave inner products
-    unchanged and let the fused selection kernels tile cleanly."""
+    """FDE width padded to a multiple of 128 — zero columns leave inner
+    products unchanged and keep the selection matmul's width aligned."""
     w = fde_width(cfg)
     return -(-w // 128) * 128
 
@@ -190,7 +187,8 @@ def encode_documents_device(tokens, counts, cfg: dict, out_dtype=jnp.float32):
     ``[cap, padded_width]`` device array in ``out_dtype``, chunked so
     intermediates stay bounded (each chunk casts to the storage dtype
     before placement — a full-width f32 block next to a 1M token block
-    would blow the 16 GB chip). Pad slots (count 0) encode to zero rows."""
+    would double the block's device memory). Pad slots (count 0) encode to
+    zero rows."""
     cap = int(tokens.shape[0])
     w, s = _rep_constants(cfg)
     w_dev = jnp.asarray(w) if w is not None else None
@@ -236,58 +234,25 @@ def encode_query_sets_host(query_token_sets, cfg: dict) -> np.ndarray:
     return out.astype(np.float32)
 
 
-@jax.jit
-def _sq_chunk(x):
-    return jnp.sum(x.astype(jnp.float32) ** 2, axis=1)
-
-
-def block_sq_norms(x):
-    """Row squared norms of a resident block as f32, chunked — a whole-block
-    f32 upcast of a 1M x 2048 bf16 block would transiently double-charge
-    HBM next to the token block."""
-    n = int(x.shape[0])
-    if n <= _ENC_CHUNK:
-        return _sq_chunk(x)
-    return jnp.concatenate([
-        _sq_chunk(jax.lax.dynamic_slice_in_dim(x, i, min(_ENC_CHUNK, n - i), 0))
-        for i in range(0, n, _ENC_CHUNK)
-    ])
-
-
 @functools.partial(jax.jit, static_argnames=("count",))
-def _xla_fde_candidates(fde, bias, qfde, *, count):
-    """Materializing fallback selection for blocks the fused stage kernel
-    can't tile: one matmul + exact top-C by (rank, slot)."""
+def fde_candidates(fde, bias, qfde, *, count: int):
+    """Top-``count`` candidate slots per query by FDE inner product
+    (descending dot, (rank, slot) ties — slot order is lex id order): one
+    matmul, then the exact group-cover selection of ``exact_top_c``.
+    Returns ``(slots [B, count] i32, ok [B] bool)``.
+
+    Selection-only: the query takes the block's dtype (bf16 for the
+    collection's FDE block) with f32 accumulation and carries storage
+    noise, like the flat bf16 scan; the winners are re-ranked by exact
+    MaxSim downstream."""
     from .select import exact_top_c
 
-    dots = jnp.dot(qfde, fde.T.astype(jnp.float32),
+    count = min(count, int(fde.shape[0]))
+    dots = jnp.dot(qfde.astype(fde.dtype), fde.T,
                    preferred_element_type=jnp.float32)
     rank = -dots + bias[None, :]
     rank = jnp.where(jnp.isfinite(rank), rank, jnp.inf)
-    return exact_top_c(rank, None, c=count)
-
-
-def fde_candidates(fde, fde_xsq, bias, qfde, *, count: int):
-    """Top-``count`` candidate slots per query by FDE inner product
-    (descending dot, (rank, slot) ties — slot order is lex id order).
-    Returns ``(slots [B, count] i32, ok [B] bool)``."""
-    from . import flat_scan
-
-    n, width = int(fde.shape[0]), int(fde.shape[1])
-    b = int(qfde.shape[0])
-    count = min(count, n)
-    if (
-        n >= flat_scan.GROUP
-        and n % _CAP_TILE == 0
-        and flat_scan.supports_candidates("inner_product", n, width, count)
-        and flat_scan._pick_row_tile(n, width, b, fde.dtype.itemsize,
-                                     tb_factor=3.5) is not None
-    ):
-        slots, _ranks, ok = flat_scan.fused_stage_candidates(
-            fde, fde_xsq, bias, qfde, metric="inner_product", count=count,
-            dims=width)
-        return slots, ok
-    slots, _keys, ok = _xla_fde_candidates(fde, bias, qfde, count=count)
+    slots, _keys, ok = exact_top_c(rank, None, c=count)
     return slots, ok
 
 

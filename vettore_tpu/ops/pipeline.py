@@ -6,18 +6,17 @@ candidate lists flowing through Elixir
 — stage scans, candidate selection, and the exact rerank — compiles to ONE
 XLA program per query batch, so candidates never leave the device.
 
-Round-3 redesign (the round-2 pipelines were per-query vmaps whose
-``lax.top_k(candidates)`` over 1M rows cost ~0.9 s/batch — slower than the
-brute-force scan they were meant to beat):
+Design (per-query vmaps with a ``lax.top_k(candidates)`` over 1M rows
+would be slower than the brute-force scan they are meant to beat):
 
 * **batch-first**: every stage works on the full ``[B, N]`` score matrix;
 * **candidate selection via ops/select.exact_top_c** — recursive group-min
-  descent, exact with (rank, id) ties, ~40x cheaper than ``lax.top_k`` at
-  candidates=500 over 1M rows;
-* **Hamming on the MXU**: sign bits expand once to a device-resident ±1 int8
-  block; ``hamming = (d - s·q)/2`` is then one int8 matmul (int32
+  descent (its first level is a 64-row group cover), exact with (rank, id)
+  ties and far cheaper than a full ``lax.top_k`` at candidates=500;
+* **Hamming as a matmul**: sign bits expand once to a device-resident ±1
+  int8 block; ``hamming = (d - s·q)/2`` is then one int8 matmul (int32
   accumulate) — bit-identical to XOR+popcount over the packed words
-  (distances.rs:426-437) and ~100x faster than a VPU popcount sweep.
+  (distances.rs:426-437).
 
 Invariant: the caller's block is LEX-SORTED — slot order equals id order
 (``_VectorCache`` stores records sorted by id, invalid/pad slots last), so
@@ -149,14 +148,14 @@ def _sort_candidates(slots, c):
 
 
 # ---------------------------------------------------------------------------
-# sign-bit expansion + MXU Hamming
+# sign-bit expansion + matmul Hamming
 # ---------------------------------------------------------------------------
 
 
 @functools.partial(jax.jit, static_argnames=("d",))
 def signs_from_bits(bits, *, d):
     """Expands packed sign words [N, W] u32 into a ±1 int8 block [N, d] —
-    the MXU-ready quantized representation (bit i%32 of word i//32, the
+    the matmul-ready quantized representation (bit i%32 of word i//32, the
     pack_signs_u32 layout)."""
     n, w = bits.shape
     expanded = (bits[:, :, None] >> jnp.arange(32, dtype=jnp.uint32)[None, None, :]) & 1
@@ -171,7 +170,7 @@ def query_signs(queries):
 
 
 def _hamming_rank(signs, valid, qsigns, *, d):
-    """[B, N] Hamming distances via one int8 MXU matmul:
+    """[B, N] Hamming distances via one int8 matmul:
     ham = (d - s·q) / 2, exactly the packed XOR+popcount value."""
     dots = jax.lax.dot_general(
         qsigns, signs, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32)
@@ -185,6 +184,22 @@ _GROUP = 64
 _BIG16 = 32767
 #: below this many rows the direct full-width composite pass is cheaper
 _GROUP_COVER_MIN = 65536
+
+
+def _sign_group_scan(signs, valid, qsigns, *, d):
+    """One pass over the ±1 int8 block: ``(gmin [B, N/64] i32, ham16 [B, N]
+    i16)`` — hamming = (d - s·q)/2 exactly (the packed XOR+popcount value,
+    distances.rs:426-437), invalid rows pinned to ``_BIG16``. The product
+    accumulates in int32 (the int8 tensor-core form) and narrows to the i16
+    block the element pass gathers from (|dot| <= d < 16384)."""
+    b, n = qsigns.shape[0], signs.shape[0]
+    dots = jax.lax.dot_general(
+        qsigns, signs, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32)
+    ham16 = ((d - dots) >> 1).astype(jnp.int16)
+    ham16 = jnp.where(valid[None, :], ham16, jnp.int16(_BIG16))
+    gmin = jnp.min(ham16.reshape(b, n // _GROUP, _GROUP), axis=2).astype(jnp.int32)
+    return gmin, ham16
 
 
 def _hamming_slots(signs, valid, qsigns, *, count, d):
@@ -224,42 +239,15 @@ def _hamming_slots(signs, valid, qsigns, *, count, d):
         and (d + 1).bit_length() + gbits <= 31
         and ng > count
     ):
-        from . import flat_scan
-
-        row_tile = flat_scan._pick_row_tile(n, d, b, 1, tb_factor=3.0)
-        if row_tile is not None and flat_scan.supports_sign_scan(n, d, b):
-            # one fused Pallas pass: int8 MXU dot + hamming + group-min in
-            # VMEM + a single transposed i16 hamming write (the XLA
-            # formulation re-read its [B, N] output to reduce it)
-            gmin, ham16 = flat_scan.fused_sign_scan(
-                signs, valid.astype(jnp.int8), qsigns, d=d, row_tile=row_tile)
-        else:
-            # i16 accumulate is overflow-safe (|dot| <= d < 16384) and
-            # halves the [B, N] write traffic; the ham conversion fuses
-            # into the matmul epilogue
-            dots16 = jax.lax.dot_general(
-                qsigns, signs, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int16)
-            ham16 = (jnp.int16(d) - dots16) >> 1
-            ham16 = jnp.where(valid[None, :], ham16, jnp.int16(_BIG16))
-            gmin = jnp.min(
-                ham16.reshape(b, ng, _GROUP), axis=2).astype(jnp.int32)
+        gmin, ham16 = _sign_group_scan(signs, valid, qsigns, d=d)
         # all-pad groups clamp to d + 1: still past every real hamming
         # (<= d) but shift-safe under the (d + 1)-bit guard above
         gmin = jnp.minimum(gmin, d + 1)  # [B, NG]
         gcomp = (gmin << gbits) | jnp.arange(ng, dtype=jnp.int32)[None, :]
         gslots, _gkeys = exact_top_c_unique_int(gcomp, c=count)
         gc = jnp.maximum(gslots, 0)
-        if n % (2 * _GROUP) == 0:
-            # covered 64-slot group rows extracted as HALF rows of the
-            # pair-layout (128-lane) view with the query row VMEM-resident —
-            # the XLA row-gather here cost 14.3 ms/batch at 1M, the kernel 6.9
-            sub = flat_scan.extract_group_rows(
-                ham16.reshape(b, n // (2 * _GROUP), 2 * _GROUP), gc,
-                half=True)  # [B, count, 64]
-        else:
-            sub = jnp.take_along_axis(
-                ham16.reshape(b, ng, _GROUP), gc[:, :, None], axis=1)
+        sub = jnp.take_along_axis(
+            ham16.reshape(b, ng, _GROUP), gc[:, :, None], axis=1)  # [B, count, 64]
         sub_slots = (
             gc[:, :, None] * _GROUP
             + jnp.arange(_GROUP, dtype=jnp.int32)[None, None, :]
@@ -291,42 +279,22 @@ def _hamming_slots(signs, valid, qsigns, *, count, d):
 # ---------------------------------------------------------------------------
 
 
-#: rows below which the XLA stage-1 (materialized [B, N] rank matrix) beats
-#: the fused Pallas kernel's fixed costs
-_FUSED_STAGE_MIN = 65536
-
-
-def _stage1_candidates(x, valid, queries, stage_xsq, *, metric, dims, count):
-    """Stage-1 candidate selection: fused Pallas prefix scan (matmul +
-    group-min in VMEM, group-cover rescore — the [B, N] rank matrix never
-    reaches HBM) when the caller supplied prefix norms and the config
-    qualifies; the materializing XLA formulation otherwise. Returns
+def _stage1_candidates(x, valid, queries, *, metric, dims, count):
+    """Stage-1 candidate selection: the true prefix-metric rank matrix, then
+    the exact group-cover descent of ``exact_top_c`` (64-row group minima
+    pick the covering groups, whose elements alone are ranked). Returns
     (slots [B, count] best-first, ok [B])."""
-    from . import flat_scan
-
-    n = x.shape[0]
-    if (
-        stage_xsq is not None
-        and n >= _FUSED_STAGE_MIN
-        and n % 512 == 0
-        and flat_scan.supports_candidates(metric, n, dims, count)
-    ):
-        bias = jnp.where(valid, 0.0, jnp.inf).astype(jnp.float32)
-        slots, _ranks, ok = flat_scan.fused_stage_candidates(
-            x, stage_xsq, bias, queries, metric=metric, count=count, dims=dims)
-        return slots, ok
     rank, finite = _rank_full(x, valid, queries, metric=metric, dims=dims)
     slots, _, sel_ok = exact_top_c(rank, None, c=count)
     return slots, finite & sel_ok
 
 
 @functools.partial(jax.jit, static_argnames=("metric", "stages", "count", "limit"))
-def funnel_pipeline_batch(x, valid, queries, stage_xsq=None, *, metric,
-                          stages, count, limit):
+def funnel_pipeline_batch(x, valid, queries, *, metric, stages, count, limit):
     """Matryoshka funnel: prefix stage + exact rerank, one dispatch.
     Returns (slots [B, limit], raws, ranks, ok [B])."""
-    slots, ok = _stage1_candidates(x, valid, queries, stage_xsq,
-                                   metric=metric, dims=stages[0], count=count)
+    slots, ok = _stage1_candidates(x, valid, queries, metric=metric,
+                                   dims=stages[0], count=count)
     slots, slot_ok = _sort_candidates(slots, count)
     for dims in stages[1:]:
         raw, rank_c, f = _subset_raw_rank(x, slots, slot_ok, queries,
@@ -345,7 +313,7 @@ def funnel_pipeline_batch(x, valid, queries, stage_xsq=None, *, metric,
 
 @functools.partial(jax.jit, static_argnames=("metric", "count", "limit", "d"))
 def quantized_pipeline_batch(x, signs, valid, queries, *, metric, count, limit, d):
-    """Binary-quantized candidates (MXU Hamming) + exact rerank."""
+    """Binary-quantized candidates (matmul Hamming) + exact rerank."""
     qs = query_signs(queries[:, :d])
     slots, _hams, sel_ok = _hamming_slots(signs, valid, qs, count=count, d=d)
     slots, slot_ok = _sort_candidates(slots, count)
@@ -356,12 +324,11 @@ def quantized_pipeline_batch(x, signs, valid, queries, *, metric, count, limit, 
 
 
 @functools.partial(jax.jit, static_argnames=("metric", "stages", "count"))
-def funnel_candidates_batch(x, valid, queries, stage_xsq=None, *, metric,
-                            stages, count):
+def funnel_candidates_batch(x, valid, queries, *, metric, stages, count):
     """Funnel stages only (hybrid generator): lex-sorted candidates.
     Returns (slots [B, C], slot_ok [B, C], ok [B])."""
-    slots, ok = _stage1_candidates(x, valid, queries, stage_xsq,
-                                   metric=metric, dims=stages[0], count=count)
+    slots, ok = _stage1_candidates(x, valid, queries, metric=metric,
+                                   dims=stages[0], count=count)
     slots, slot_ok = _sort_candidates(slots, count)
     for dims in stages[1:]:
         raw, rank_c, f = _subset_raw_rank(x, slots, slot_ok, queries,
@@ -413,10 +380,10 @@ def rerank_batch(x, slots, slot_ok, queries, *, metric, limit):
 # ---------------------------------------------------------------------------
 
 
-def funnel_pipeline(x, valid, q, stage_xsq=None, *, metric, stages, count, limit):
+def funnel_pipeline(x, valid, q, *, metric, stages, count, limit):
     top, raws, ranks, ok = funnel_pipeline_batch(
-        x, valid, q[None, :], stage_xsq, metric=metric, stages=stages,
-        count=count, limit=limit)
+        x, valid, q[None, :], metric=metric, stages=stages, count=count,
+        limit=limit)
     return top[0], raws[0], ranks[0], ok[0]
 
 
@@ -426,9 +393,9 @@ def quantized_pipeline(x, signs, valid, q, *, metric, count, limit, d):
     return top[0], raws[0], ranks[0], ok[0]
 
 
-def funnel_candidates_pipeline(x, valid, q, stage_xsq=None, *, metric, stages, count):
+def funnel_candidates_pipeline(x, valid, q, *, metric, stages, count):
     slots, slot_ok, ok = funnel_candidates_batch(
-        x, valid, q[None, :], stage_xsq, metric=metric, stages=stages, count=count)
+        x, valid, q[None, :], metric=metric, stages=stages, count=count)
     return slots[0], slot_ok[0], ok[0]
 
 

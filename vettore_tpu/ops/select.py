@@ -2,10 +2,9 @@
 
 The adaptive pipelines (quantized candidates=500, funnel candidates=200,
 hybrid generators) need the exact C best slots per query out of a [B, N]
-score matrix. ``lax.top_k`` on TPU costs ~O(C·N) per query — 1.25 s for
-C=500 over [512, 1M] — because it re-extracts per element of k. This module
-selects the same exact set in ~O(N + C·N/G + C²·g) by descending through
-group minima:
+score matrix. A full ``lax.top_k`` with large k costs far more than one
+pass over the matrix. This module selects the same exact set in
+~O(N + C·N/G + C²·g) by descending through group minima:
 
 * level 1 reduces rows to 64-row group minima and keeps the best
   ``C + slack`` groups. Order-statistic bound (same argument as
@@ -19,8 +18,7 @@ group minima:
 * the final <= ~8·C survivors sort exactly by (score, lex id) —
   the reference's (rank, id) heap order (search.rs:23-29).
 
-Measured [512, 1M] C=512 u16 keys on v5e: ~30 ms vs 1,248 ms lax.top_k —
-and unlike ``approx_max_k`` (54 ms) the result is exact.
+Unlike ``approx_max_k`` the result is exact.
 """
 
 from __future__ import annotations
@@ -42,8 +40,8 @@ _BIG32 = 2**31 - 1
 def group_topk(gmin, gsel, check_c=None):
     """Per-row ``gsel`` smallest entries of ``gmin`` [B, ng]
     (ascending-is-better, +inf pad): returns ``(values, idx, ok)`` sorted
-    ascending. ``lax.top_k`` lowers to a full bitonic sort on TPU —
-    O(ng·log²ng) per row, ~46 ms for gsel=520 over [512, 15632] — so for
+    ascending. A ``lax.top_k`` with large k can lower to a full sort —
+    O(ng·log²ng) per row — so for
     large ``ng`` this descends recursively through 8-wide super-group
     minima first (the gsel smallest group-mins occupy at most gsel
     super-groups; any super-group whose min exceeds the gsel-th smallest
@@ -63,8 +61,7 @@ def group_topk(gmin, gsel, check_c=None):
     for callers that verify exactness themselves."""
     b, ng = gmin.shape
     if ng % 8 and ng > _DIRECT_TOPK:
-        # +inf-pad to the next multiple of 8: the descent path is ~18 ms/batch
-        # cheaper than the direct bitonic top_k at [512, 15625]-class shapes.
+        # +inf-pad to the next multiple of 8 so the descent path applies.
         # A pad can only be selected when a row has fewer than gsel finite
         # groups; clamping would duplicate a real group in the selection, so
         # such rows flag ok=False (host-oracle fallback) instead.
@@ -197,13 +194,3 @@ def exact_top_c(key, lex_rank, *, c: int):
     b, n = key.shape
     slots = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32)[None, :], (b, n))
     return _descend_and_sort(key, slots, lex_rank, c, min(c, n))
-
-
-@functools.partial(jax.jit, static_argnames=("c",))
-def exact_top_c_slots(key, slots, *, c: int):
-    """``exact_top_c`` over caller-provided ``(key [B, M], slots [B, M])``
-    pairs — for keyed arrays that are gathered sub-blocks whose positions
-    are NOT global slots (the fused stage-candidate rescore). Slot order
-    must equal lex id order (lex-sorted cache blocks); pads carry +inf key."""
-    b, m = key.shape
-    return _descend_and_sort(key, slots, None, c, min(c, m))

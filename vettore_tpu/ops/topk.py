@@ -2,7 +2,7 @@
 
 The reference keeps a bounded max-heap ordered by ``(rank, external_id)``
 (flat.rs:34-40, search.rs:23-29) so equal-rank hits always come back in
-lexicographic id order, independent of insertion order. On TPU we get the same
+lexicographic id order, independent of insertion order. On device we get the same
 guarantee without a heap:
 
 * the host maintains ``lex_order`` — a permutation of slots sorted by external

@@ -1,5 +1,5 @@
 """Multi-chip sharding: collections larger than one chip shard across a
-``jax.sharding.Mesh`` with query broadcast and a sharded top-k merge over ICI
+``jax.sharding.Mesh`` with query broadcast and a sharded top-k merge over the interconnect
 (the distributed backend the single-node reference lacks; SURVEY §5.8)."""
 
 from .collection_mesh import MeshFlatIndex, MeshHnswIndex

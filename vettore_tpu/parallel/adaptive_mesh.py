@@ -7,7 +7,7 @@ sign / token blocks are row-sharded).
 
 Design: every per-shard stage reuses the single-chip kernels
 (ops/pipeline, ops/select, ops/maxsim) on the shard's local rows; only
-fixed-size ``(rank, slot, raw)`` candidate triples ride ICI between stages
+fixed-size ``(rank, slot, raw)`` candidate triples cross the interconnect between stages
 (``all_gather`` + multi-key sort), never vectors. Because the scan cache is
 lex-sorted, the global slot IS the lex rank, so the merge's (rank, slot)
 sort preserves the reference's deterministic (rank, id) tie-break
@@ -45,7 +45,7 @@ _BIG32 = 2**31 - 1
 
 
 def _merge_topc(rank_loc, gslots_loc, c):
-    """Merges per-shard candidate sets over ICI: [B, C] (rank asc, global
+    """Merges per-shard candidate sets over the interconnect: [B, C] (rank asc, global
     slot) per shard -> global best-C, replicated. Invalid = rank +inf."""
     r = jax.lax.all_gather(rank_loc, "shard", axis=1, tiled=True)  # [B, S*C]
     s = jax.lax.all_gather(gslots_loc, "shard", axis=1, tiled=True)
@@ -272,7 +272,7 @@ def _maxsim_topk_program(mesh, metric, limit, chunk_loc, n_loc):
 def sharded_maxsim_topk(mesh, tokens, counts, valid, qtok, qmask, *, metric,
                         limit, chunk):
     """Sharded full-corpus MaxSim: per-shard chunked streaming scan
-    (ops/maxsim.maxsim_full_topk_batch) + (score desc, slot asc) ICI merge.
+    (ops/maxsim.maxsim_full_topk_batch) + (score desc, slot asc) interconnect merge.
     Returns (slots [B, limit] (-1 pads), scores, ok [B])."""
     n_loc = tokens.shape[0] // _shard_count(mesh)
     return _maxsim_topk_program(mesh, metric, limit, min(chunk, n_loc),

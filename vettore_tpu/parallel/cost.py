@@ -1,12 +1,11 @@
-"""Falsifiable cost model for the ICI candidate merges (SURVEY §5.8).
+"""Falsifiable cost model for the interconnect candidate merges (SURVEY §5.8).
 
 The sharded search programs merge per-shard top-k candidate sets with
 ``all_gather`` over the ``shard`` axis. This module states the expected
 per-chip gather traffic in bytes and verifies it against the program the
 compiler actually sees, by walking the traced jaxpr for ``all_gather``
 equations. The driver's multi-chip dryrun asserts the two agree, so the
-merge design carries a checkable cost model before multi-chip hardware
-exists (VERDICT r3 item 9).
+merge design carries a checkable cost model for any interconnect.
 
 Model (``vettore_tpu/parallel/mesh.py::sharded_search``): each shard emits
 ``k`` candidate triples per query as four planes — rank f32, lex-rank i32,
@@ -14,7 +13,8 @@ global slot i32, raw f32 — so one query batch of local size ``b`` moves
 
     bytes/chip = 4 planes * b * (S * k) * 4 B
 
-through ICI (each chip materializes the gathered ``[b, S*k]`` planes).
+through the interconnect (each device materializes the gathered
+``[b, S*k]`` planes).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import jax
 
 def expected_merge_bytes(n_shards: int, b_local: int, k: int,
                          planes: int = 4, itemsize: int = 4) -> int:
-    """Modelled per-chip ICI bytes for one sharded top-k merge."""
+    """Modelled per-device interconnect bytes for one sharded top-k merge."""
     return planes * b_local * n_shards * k * itemsize
 
 

@@ -1,9 +1,9 @@
-"""Mesh-sharded HNSW: one sub-graph per chip, scatter-gather search over ICI.
+"""Mesh-sharded HNSW: one sub-graph per chip, scatter-gather search over the interconnect.
 
 Collections past one chip's HBM shard by rows: each shard builds an
 independent HNSW graph over its rows (device wave construction), and a query
 searches every shard's graph in parallel under ``shard_map``, then the
-per-shard top-k candidate sets (rank, lex-rank, global row) merge over ICI
+per-shard top-k candidate sets (rank, lex-rank, global row) merge over the interconnect
 with a multi-key sort — identical ordering semantics to single-chip search.
 
 Searching S smaller graphs with the same ef does not lose recall relative to
@@ -526,7 +526,7 @@ def _hnsw_search_program(mesh, metric, lmax, ef, k):
         grows = jnp.where(ok, grows_raw, -1)
         glex = jnp.where(ok, lex_b[0][jnp.maximum(slots, 0)], 2**31 - 1)
         dists = jnp.where(ok, dists, jnp.inf)
-        # gather per-shard candidates over ICI and merge exactly
+        # gather per-shard candidates over the interconnect and merge exactly
         d_all = jax.lax.all_gather(dists, "shard", axis=1, tiled=True)
         l_all = jax.lax.all_gather(glex, "shard", axis=1, tiled=True)
         r_all = jax.lax.all_gather(grows, "shard", axis=1, tiled=True)

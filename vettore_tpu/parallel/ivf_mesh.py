@@ -1,4 +1,4 @@
-"""Mesh-sharded IVF: per-shard k-means routing blocks, ICI candidate merge.
+"""Mesh-sharded IVF: per-shard k-means routing blocks, interconnect candidate merge.
 
 The IVF index (index/ivf.py) sharded by rows across the ``shard`` axis of a
 device mesh (SURVEY §5.8 posture, same scatter-gather shape as
@@ -6,14 +6,13 @@ hnsw_mesh.ShardedHnsw): each shard holds a cluster-major block of its row
 range plus that block's routing centroids; a query under ``shard_map`` routes
 to its best ``n_probe`` blocks per shard, rescores those rows, and the
 per-shard top-k candidate triples (rank, global lex, global row) merge over
-ICI with a multi-key sort — the deterministic (rank, id) tie-break survives
+the interconnect with a multi-key sort — the deterministic (rank, id) tie-break survives
 end to end. Probing P blocks on each of S shards examines S·P blocks total,
 so per-shard recall at fixed ``n_probe`` is at least single-chip recall.
 
-The in-shard-map rescore is the portable XLA formulation (gather + einsum) —
-it runs identically on the virtual CPU mesh and real slices; slotting the
-scalar-prefetch Pallas streamer (ops/flat_scan._rescore) into the shard body
-is a single-chip-proven follow-up for real multi-chip hardware.
+The in-shard-map rescore is the portable XLA formulation (gather + einsum
+at full f32 precision, so the shard selects exactly as one device does) — it
+runs identically on the virtual CPU mesh and on real devices.
 """
 
 from __future__ import annotations
@@ -233,6 +232,7 @@ def _ivf_search_program(mesh, metric, nprobe, k):
         capb, d = xs.shape
         ngb = capb // GROUP
         qf = q_b.astype(jnp.float32)
+        # selection-only (block routing): bf16 operands, f32 accumulation
         dots = jnp.dot(qf.astype(jnp.bfloat16), bcb_b[0].T,
                        preferred_element_type=jnp.float32)  # [b, ngb]
         if metric in ("cosine", "inner_product"):
@@ -248,6 +248,7 @@ def _ivf_search_program(mesh, metric, nprobe, k):
         xg = xs.reshape(ngb, GROUP, d)
         cand_rows = xg[gidx]  # [b, p, GROUP, d]
         cdots = jnp.einsum("bpgd,bd->bpg", cand_rows.astype(jnp.float32), qf,
+                           precision=jax.lax.Precision.HIGHEST,
                            preferred_element_type=jnp.float32)
         if metric in ("cosine", "inner_product"):
             crk = -cdots
@@ -292,7 +293,7 @@ def _ivf_search_program(mesh, metric, nprobe, k):
                                (1.0 - raw) if metric == "cosine" else
                                (-raw if metric == "inner_product" else raw),
                                jnp.inf)
-        # merge candidate triples over ICI, exactly as the flat/hnsw meshes
+        # merge candidate triples over the interconnect, exactly as the flat/hnsw meshes
         d_all = jax.lax.all_gather(rank_m, "shard", axis=1, tiled=True)
         l_all = jax.lax.all_gather(lex_s, "shard", axis=1, tiled=True)
         r_all = jax.lax.all_gather(grows, "shard", axis=1, tiled=True)

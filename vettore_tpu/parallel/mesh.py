@@ -1,19 +1,20 @@
-"""Mesh-sharded flat search: row shards, query broadcast, ICI top-k merge.
+"""Mesh-sharded flat search: row shards, query broadcast, top-k merge.
 
 The reference is single-node (SURVEY §2.3): ETS is the only shared state and
-reads scale via concurrent reader processes. The TPU-native equivalent scales
+reads scale via concurrent reader processes. The device equivalent scales
 two ways on a 2-D device mesh:
 
 * ``data`` axis — query batches are data-parallel (the analog of BEAM's
   concurrent readers);
-* ``shard`` axis — the ``[N, d]`` embedding block is row-sharded across chips.
-  Each chip computes a local top-k over its rows, then the k-candidate sets
-  (rank, lex-rank, global slot) ride ICI through ``all_gather`` and merge with
+* ``shard`` axis — the ``[N, d]`` embedding block is row-sharded across
+  devices. Each device computes a local top-k over its rows, then the
+  k-candidate sets (rank, lex-rank, global slot) cross the interconnect
+  through ``all_gather`` and merge with
   a multi-key sort, preserving the reference's deterministic (rank, id)
   tie-break end-to-end.
 
 Works identically on a virtual CPU mesh
-(``XLA_FLAGS=--xla_force_host_platform_device_count=N``) and real TPU slices.
+(``XLA_FLAGS=--xla_force_host_platform_device_count=N``) and real devices.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def program_cache(builder):
     """Memoizes JITTED shard_map programs by their static key.
 
     Building the shard_map inside the search wrapper re-traces AND re-lowers
-    the whole sharded program on EVERY batch — measured 14,030 ms vs 294 ms
-    per batch at 262k x 768 on the real chip (docs/mesh1_overhead.json).
+    the whole sharded program on EVERY batch, which costs far more than the
+    search itself.
     ``builder(*key)`` returns the traced step fn; the cache holds one jitted
     callable per (mesh, statics...) key, and jit's own cache handles shapes.
     """
@@ -92,7 +93,7 @@ def _search_program(mesh, metric, k, shard_size):
             return r, l, s + offset, rw
 
         r, l, s, rw = jax.vmap(one)(q_block)  # [b, k] each
-        # gather candidate sets from every shard over ICI and merge
+        # gather candidate sets from every shard and merge
         r = jax.lax.all_gather(r, "shard", axis=1, tiled=True)  # [b, S*k]
         l = jax.lax.all_gather(l, "shard", axis=1, tiled=True)
         s = jax.lax.all_gather(s, "shard", axis=1, tiled=True)

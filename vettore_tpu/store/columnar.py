@@ -5,8 +5,7 @@ The host analog of the reference's ``:compressed`` ETS tables
 in contiguous column blocks — one [cap, d] vector matrix, one [cap, words]
 packed sign matrix — instead of one Python object per record, so a
 1M x 768 collection's canonical state costs the vector block (2.86 GiB
-f32, 1.43 GiB bf16) plus megabytes, not gigabytes, of bookkeeping
-(measured: ``_exp/host_rss.py``).
+f32, 1.43 GiB bf16) plus megabytes, not gigabytes, of bookkeeping.
 
 Concurrency follows the same ETS-shaped discipline as ``MemoryStore``
 (store/memory.py): writes serialize through one lock, reads are lock-free

@@ -1,6 +1,6 @@
 """In-memory canonical record store.
 
-The TPU-native equivalent of the ETS store + owner process
+The host equivalent of the ETS store + owner process
 (/root/reference/lib/vettore/store/ets.ex, lib/vettore/ets_owner.ex): writes
 are serialized through a single lock (the owner-GenServer role), reads are
 lock-free against immutable snapshots (the protected-table,
